@@ -8,11 +8,14 @@ Usage (from the root of a checkout, on a machine with a CUDA card and nvcc):
 Phases, each of which exits non-zero on failure:
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build: every ``mcgm_tpu_torch/csrc/*.cu`` for sm_90a, with ptxas's report;
+2. build: every ``mcgm_tpu_torch/csrc/*.cu`` for sm_90a, with ptxas's report
+   and, where ``cuobjdump`` is installed, the count of tensor-core
+   instructions (HMMA / HGMMA) in each library's SASS (0 fails the run);
 3. kernel: each hand-written kernel against its plain PyTorch version at the
    main path's shapes (full chunk and tail chunk) and at other shapes it
-   takes, under a stated tolerance, timed at the full chunk beside its plain
-   version, a cuDNN yardstick and its bound;
+   takes, under a stated tolerance, timed at the main path's shapes beside its
+   plain version, a cuDNN yardstick (also timed by parts) and its bound; then
+   its gradient (plain VJP) against the plain version's autograd gradient;
 4. slice: the 128px MCGAN (CelebA-HQ / ImageNet protocol) at full width and
    depth, random weights from seed 0, driven as a user would: ``build_model``,
    ``Sampler.sample_chunked`` over the class sweep in chunks of 128, then
@@ -35,6 +38,8 @@ import copy
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -107,7 +112,8 @@ def block_inputs(B, H, W, cin, cout, seed):
 
 def block_library_chain(args):
     """The same function as a chain of cuDNN bf16 calls: a yardstick of
-    what one library call per op costs; the port never calls it."""
+    what one library call per op costs; the port never calls it. Returns the
+    whole chain and its three parts (each a callable)."""
     x, code, w1, b1, w2f, b2, w3, b3 = args
     bf = torch.bfloat16
     cin, cout = w1.shape[2], w1.shape[3]
@@ -118,11 +124,21 @@ def block_library_chain(args):
     codeb = code.to(bf)[:, :, None, None]
     xc = x.permute(0, 3, 1, 2)  # NCHW view of channels-last memory
 
+    def conv1():  # conv3x3 + ReLU + gate: writes h
+        return F.conv2d(xc, w1o, b1b, padding=1).relu_().mul_(codeb)
+
+    def conv2(h):  # conv4x4/s2: reads h
+        return F.conv2d(h, w2o, b2b, stride=2, padding=1)
+
+    def shortcut():  # avgpool + conv1x1
+        return F.conv2d(F.avg_pool2d(xc, 2), w3o, b3b)
+
     def run():
-        h = F.conv2d(xc, w1o, b1b, padding=1).relu_().mul_(codeb)
-        y = F.conv2d(h, w2o, b2b, stride=2, padding=1)
-        return y.add_(F.conv2d(F.avg_pool2d(xc, 2), w3o, b3b))
-    return run
+        return conv2(conv1()).add_(shortcut())
+    h, y = conv1(), run()
+    parts = {"conv3x3_relu_gate": conv1, "conv4x4_s2": lambda: conv2(h),
+             "shortcut_and_add": lambda: y.add(shortcut())}
+    return run, parts
 
 
 def block_bound(args):
@@ -154,9 +170,13 @@ def check_first_dblock(shape, seed, timed: bool):
     rec = {"shape": list(shape), "max_abs_err": err, "max_abs_ref": scale,
            "tolerance": KERNEL_TOL * scale, "ok": ok}
     if timed:
-        rec["ms"] = cuda_ms(lambda: fd.first_dblock(*args), 20)
+        ops = fd.kernel_operands(*args)  # the kernel alone, on packed operands
+        rec["ms"] = cuda_ms(lambda: fd.launch(ops), 20)
+        rec["wrapper_ms"] = cuda_ms(lambda: fd.first_dblock(*args), 20)  # with the prologue
         rec["plain_ms"] = cuda_ms(lambda: fd.first_dblock_reference(*args), 10)
-        rec["library_ms"] = cuda_ms(block_library_chain(args), 20)
+        chain, parts = block_library_chain(args)
+        rec["library_ms"] = cuda_ms(chain, 20)
+        rec["library_parts_ms"] = {k: cuda_ms(f, 20) for k, f in parts.items()}
         rec["bound_ms"], rec["bound_by"], flop, nbytes = block_bound(args)
         rec["tflops"] = flop / rec["ms"] / 1e9
         rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
@@ -165,6 +185,50 @@ def check_first_dblock(shape, seed, timed: bool):
         raise SystemExit(f"first_dblock disagrees with its plain version at {shape}: "
                          f"max|d| {err} > {KERNEL_TOL} * {scale}")
     return rec
+
+
+def check_first_dblock_grad(shape, seed):
+    """The kernel path's gradients (forward: the kernel; backward: the plain
+    VJP) against the plain version's own autograd gradients, with respect to
+    x and every weight and bias, within KERNEL_TOL * max|plain grad|."""
+    args = block_inputs(*shape, seed)
+    grad_at = (0, 2, 3, 4, 5, 6, 7)  # every input but code, which gets none
+    B, H, W, _, cout = shape
+    gy = torch.randn((B, H // 2, W // 2, cout), generator=torch.Generator(device=DEV)
+                     .manual_seed(seed + 1), device=DEV).to(torch.bfloat16)
+
+    def grads(fn):
+        leaves = [a.detach().clone().requires_grad_(i in grad_at) for i, a in enumerate(args)]
+        return torch.autograd.grad(fn(*leaves), [leaves[i] for i in grad_at], gy)
+
+    before = fd.first_dblock.launches
+    got = grads(fd.first_dblock)
+    launched = fd.first_dblock.launches - before
+    want = grads(fd.first_dblock_reference)
+    names = ("x", "w1", "b1", "w2f", "b2", "w3", "b3")
+    rec, bad = {"shape": list(shape), "launches": launched}, []
+    for name, g, w in zip(names, got, want):
+        err = (g.float() - w.float()).abs().max().item()
+        scale = w.float().abs().max().item()
+        rec[name] = {"max_abs_err": err, "max_abs_ref": scale}
+        if not (torch.isfinite(g).all() and err <= KERNEL_TOL * scale):
+            bad.append(name)
+    log("first_dblock grad", json.dumps(rec))
+    if launched != 1 or bad:
+        raise SystemExit(f"first_dblock gradient: {launched} launches, mismatch in {bad}")
+
+
+def sass_tensor_core_count(name: str) -> dict | None:
+    """Counts of HMMA / HGMMA instructions in the built library's SASS, or
+    None where ``cuobjdump`` is not installed."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+        if tool is None:
+            return None
+    sass = subprocess.run([tool, "-sass", str(build.library_path(name))], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    return {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("HMMA", "HGMMA")}
 
 
 # ------------------------------------------------------------------- slice
@@ -264,6 +328,7 @@ def run_slice(name_limit: str, profile_dir: str | None = None):
     fd.first_dblock.launches = 0
     imgs, logits, t_g, t_gd = g_then_d(0)  # the counted run of the main path
     launches = {"first_dblock": fd.first_dblock.launches}
+    d_calls = len(range(0, len(C), chunk))
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     times = [g_then_d(2 + i)[2:] for i in range(3)]
     gen_ips = len(C) / statistics.median(t for t, _ in times)
@@ -272,8 +337,9 @@ def run_slice(name_limit: str, profile_dir: str | None = None):
         f"launches {launches}")
 
     bad = []
-    if launches["first_dblock"] < 1:
-        bad.append("the main path never launched first_dblock")
+    if launches["first_dblock"] != d_calls:
+        bad.append(f"first_dblock launched {launches['first_dblock']} times in "
+                   f"{d_calls} discriminate calls")
     if imgs.shape != (len(C), 128, 128, 3) or logits.shape != (len(C), 1):
         bad.append(f"shapes {tuple(imgs.shape)} {tuple(logits.shape)}")
     if not (torch.isfinite(imgs).all() and torch.isfinite(logits).all()):
@@ -336,11 +402,21 @@ def main() -> int:
         for line in r["log"].splitlines():
             if "ptxas" in line and ("Used" in line or "spill" in line or "Compiling" in line):
                 log("  " + line.strip())
+        counts = sass_tensor_core_count(kname)
+        log(f"sass {kname}: tensor-core instructions {json.dumps(counts)}"
+            + (" (no cuobjdump)" if counts is None else ""))
+        if counts is not None and counts["HMMA"] + counts["HGMMA"] == 0:
+            raise SystemExit(f"{kname}: no tensor-core instruction in its SASS")
 
     full = check_first_dblock((128, 128, 128, 3, 64), seed=0, timed=True)
-    check_first_dblock((16, 128, 128, 3, 64), seed=3, timed=False)  # the sweep's tail chunk
+    tail = check_first_dblock((16, 128, 128, 3, 64), seed=3, timed=True)  # the sweep's tail
+    cifar = check_first_dblock((512, 32, 32, 3, 128), seed=4, timed=True)  # CIFAR's test batch
     check_first_dblock((3, 32, 32, 3, 128), seed=1, timed=False)
-    check_first_dblock((2, 30, 70, 1, 64), seed=2, timed=False)
+    check_first_dblock((2, 30, 70, 1, 64), seed=2, timed=False)  # ragged tiles
+    check_first_dblock((1, 128, 128, 3, 64), seed=5, timed=False)  # fewer items than blocks
+    check_first_dblock((5, 128, 128, 3, 64), seed=6, timed=False)  # items not a grid multiple
+    check_first_dblock_grad((2, 16, 12, 3, 64), seed=7)
+    check_first_dblock_grad((2, 8, 12, 1, 128), seed=8)
 
     launches, _ = run_slice(name_limit, args.profile)
 
@@ -353,7 +429,10 @@ def main() -> int:
         "max_err": full["max_abs_err"], "kernel_ms": full["ms"],
         "bound_by": full["bound_by"], "library_ms": full["library_ms"],
         "library": "cuDNN bf16 chain: conv3x3, relu*code, conv4x4/s2, avgpool+conv1x1",
-        "shape": full["shape"],
+        "shape": full["shape"], "wrapper_ms": full["wrapper_ms"],
+        "roofline_share": full["roofline_share"],
+        "other_shapes": [{k: r[k] for k in ("shape", "ms", "wrapper_ms", "bound_ms", "plain_ms",
+                                            "library_ms", "max_abs_err")} for r in (tail, cifar)],
     }]
     log(name_limit)
     log(json.dumps({"kernels": kernels}))

@@ -6,8 +6,19 @@
     y = conv4x4_s2_pad1(h, w2f) + b2 + conv1x1(avgpool2(x), w3) + b3
 
 On a CUDA tensor it launches ``csrc/first_dblock.cu`` (bf16 x and y, f32
-accumulation, h kept on chip in bf16) or raises; on a CPU tensor it computes
-:func:`first_dblock_reference`. Weights are in the JAX package's HWIO layout.
+accumulation on the tensor cores, h kept on chip in bf16) or raises; on a CPU
+tensor it computes :func:`first_dblock_reference`. Weights are in the JAX
+package's HWIO layout; the wrapper packs w1 and w2f into the layouts the
+kernel reads (:func:`pack_w1`, :func:`pack_w2f`).
+
+On the card the call is a ``torch.autograd.Function``: its forward is the
+kernel, its backward the VJP of :func:`first_dblock_reference` at the same
+inputs, recomputed: f32 arithmetic with weights and h rounded to x's dtype
+as the kernel rounds them, so the ReLU masks are the forward's up to the
+order of f32 sums. The Pallas kernel had no backward; a backward kernel comes
+with the GAN train step. ``code`` gets no gradient: the mode code is a
+constant of the loss, as in the JAX package (``stop_gradient`` in
+``mc_gate``).
 """
 
 from __future__ import annotations
@@ -66,33 +77,92 @@ def _check(x, code, w1, b1, w2f, b2, w3, b3):
             raise ValueError(f"first_dblock: {name} is on {t.device}, x on {x.device}")
 
 
+def conv1_depth(cin: int) -> int:
+    """The kernel's conv1 depth: 9 C_in padded to a multiple of 16 (32 at C_in 3)."""
+    return -(-9 * cin // 16) * 16
+
+
+def pack_w1(w1):
+    """HWIO ``[3,3,Cin,Cout]`` -> ``[Cout, K]``, k = (dy*3+dx)*Cin + ci, zero
+    for k >= 9 Cin (K = :func:`conv1_depth`)."""
+    cin, cout = w1.shape[2], w1.shape[3]
+    out = w1.new_zeros((cout, conv1_depth(cin)))
+    out[:, :9 * cin].view(cout, 3, 3, cin).copy_(w1.permute(3, 0, 1, 2))
+    return out
+
+
+def pack_w2f(w2f):
+    """HWIO ``[4,4,Cout,Cout]`` -> ``[16, Cout(out), Cout(in)]``: one row
+    per output channel and tap ``ky*4+kx``, input channels innermost."""
+    c = w2f.shape[-1]
+    out = w2f.new_empty((16, c, c))
+    out.view(4, 4, c, c).copy_(w2f.permute(0, 1, 3, 2))
+    return out
+
+
+def _aligned(t, n):
+    return t if t.data_ptr() % n == 0 else t.clone()
+
+
+def kernel_operands(x, code, w1, b1, w2f, b2, w3, b3):
+    """The kernel's operands, checked by :func:`_check`, as it reads them:
+    x 4-byte aligned, code 16-byte aligned (async copies), w1 and w2f
+    packed in bf16, biases f32, w3 bf16."""
+    bf16 = torch.bfloat16
+    return [_aligned(x, 4), _aligned(code.float().contiguous(), 16), pack_w1(w1.to(bf16)),
+            b1.float().contiguous(), pack_w2f(w2f.to(bf16)), b2.float().contiguous(),
+            w3.to(bf16).contiguous(), b3.float().contiguous()]
+
+
+def launch(ops):
+    """One launch of the kernel on :func:`kernel_operands`; returns y."""
+    x = ops[0]
+    B, H, W, cin = x.shape
+    cout = ops[2].shape[0]
+    y = torch.empty((B, H // 2, W // 2, cout), dtype=torch.bfloat16, device=x.device)
+    lib = build.load(KERNEL)
+    fn = lib.mcgm_first_dblock
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(*(t.data_ptr() for t in ops), y.data_ptr(), B, H, W, cin, cout, stream)
+    build.check(lib, err, KERNEL)
+    first_dblock.launches += 1
+    return y
+
+
+class _FirstDBlock(torch.autograd.Function):
+    """Forward: the kernel. Backward: the plain version's VJP, recomputed."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        ctx.save_for_backward(*args)
+        return launch(kernel_operands(*args))
+
+    @staticmethod
+    def backward(ctx, gy):
+        inputs = ctx.saved_tensors
+        need = list(ctx.needs_input_grad)
+        need[1] = False  # code: a constant of the loss
+        if not any(need):
+            return (None,) * len(need)
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, need)]
+            y = first_dblock_reference(*leaves)
+            grads = iter(torch.autograd.grad(y, [t for t, n in zip(leaves, need) if n], gy))
+        return tuple(next(grads) if n else None for n in need)
+
+
 def first_dblock(x, code, w1, b1, w2f, b2, w3, b3):
-    """Launch the kernel for a CUDA ``x``; the plain version for a CPU one."""
+    """Launch the kernel for a CUDA ``x`` (differentiable, see the module
+    doc); the plain version for a CPU one."""
     if x.device.type == "cpu":
         return first_dblock_reference(x, code, w1, b1, w2f, b2, w3, b3)
     if x.device.type != "cuda":
         raise ValueError(f"first_dblock: no kernel for device {x.device}")
     _check(x, code, w1, b1, w2f, b2, w3, b3)
-    B, H, W, cin = x.shape
-    cout = w1.shape[-1]
-    bf16 = torch.bfloat16
-    w2 = w2f.to(bf16).contiguous()
-    if w2.data_ptr() % 16:  # the kernel streams w2f in 16-byte loads
-        w2 = w2.clone()
-    # the kernel reads these; keep them referenced until the launch returns
-    args = [x, code.float().contiguous(), w1.to(bf16).contiguous(), b1.float().contiguous(),
-            w2, b2.float().contiguous(), w3.to(bf16).contiguous(), b3.float().contiguous()]
-    y = torch.empty((B, H // 2, W // 2, cout), dtype=bf16, device=x.device)
-    lib = build.load(KERNEL)
-    fn = lib.mcgm_first_dblock
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in args), y.data_ptr(), B, H, W, cin, cout, stream)
-    build.check(lib, err, KERNEL)
-    first_dblock.launches += 1
-    return y
+    return _FirstDBlock.apply(x, code, w1, b1, w2f, b2, w3, b3)
 
 
 first_dblock.launches = 0

@@ -52,6 +52,10 @@ def _args(dev, B, H, W, cin, cout, seed=0):
     (2, 30, 70, 1, 64),     # ragged rows (Ho 15) and columns (Wo 35 > one tile)
     (1, 6, 66, 1, 128),     # Wo 33: a column tile of one
     (4, 128, 128, 3, 64),   # the 128px MCGAN first block
+    (16, 128, 128, 3, 64),  # the class sweep's tail chunk
+    (1, 128, 128, 3, 64),   # 32 work items: fewer than the persistent grid's blocks
+    (5, 128, 128, 3, 64),   # 160 work items: not a multiple of the grid
+    (512, 32, 32, 3, 128),  # CIFAR's test batch
 ])
 def test_first_dblock_matches_plain(dev, shape):
     B, H, W, cin, cout = shape
@@ -74,3 +78,28 @@ def test_first_dblock_refuses_what_it_does_not_take(dev):
         fd.first_dblock(args[0][:, :7], *args[1:])
     with pytest.raises(ValueError):
         fd.first_dblock(*_args(dev, 2, 8, 8, 2, 64))
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 12, 3, 64), (2, 8, 12, 1, 128)])
+def test_first_dblock_gradient_matches_plain(dev, shape):
+    """On the card the kernel is differentiable: its backward is the plain
+    version's VJP in f32, so its gradients match the plain version's own
+    autograd gradients (h and y rounded to bf16 in both forwards)."""
+    args = _args(dev, *shape)
+    grad_at = (0, 2, 3, 4, 5, 6, 7)  # every input but code
+    gy = torch.randn(args[0].shape[0], shape[1] // 2, shape[2] // 2, shape[4],
+                     generator=torch.Generator(device=dev).manual_seed(9), device=dev)
+
+    def grads(fn):
+        leaves = [a.detach().clone().requires_grad_(i in grad_at) for i, a in enumerate(args)]
+        y = fn(*leaves)
+        return torch.autograd.grad(y, [leaves[i] for i in grad_at], gy.to(y.dtype))
+
+    before = fd.first_dblock.launches
+    got = grads(fd.first_dblock)
+    assert fd.first_dblock.launches == before + 1
+    want = grads(fd.first_dblock_reference)
+    for i, g, w in zip(grad_at, got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, i
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= TOL * w.float().abs().max().item(), (i, err)

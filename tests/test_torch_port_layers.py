@@ -230,20 +230,94 @@ def test_first_dblock_reference_matches_jax(first_block_case):
     """The plain version, fed the SN-normalised, pool-folded HWIO weights the
     block's prologue builds, is the JAX block's function."""
     x, ind, v, want = first_block_case
+    got = fd.first_dblock_reference(torch.from_numpy(x), *_first_block_operands(v, ind))
+    assert got.shape == (3, 8, 6, 8)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("cin,cout", [(3, 64), (1, 128)])
+def test_first_dblock_weight_packing_round_trips(cin, cout):
+    """The layouts the kernel reads: w1 as [Cout, K] (k = (dy*3+dx)*Cin + ci,
+    zero-padded to K), w2f as [tap = ky*4+kx, Cout(out), Cout(in)]."""
+    rng = np.random.default_rng(11)
+    w1 = torch.from_numpy(rng.standard_normal((3, 3, cin, cout)).astype(np.float32))
+    w2f = torch.from_numpy(rng.standard_normal((4, 4, cout, cout)).astype(np.float32))
+    k = fd.conv1_depth(cin)
+    assert k % 16 == 0 and 9 * cin <= k < 9 * cin + 16
+    for dt in (torch.float32, torch.bfloat16):  # the kernel is handed bf16
+        w1p, w2p = fd.pack_w1(w1.to(dt)), fd.pack_w2f(w2f.to(dt))
+        assert w1p.shape == (cout, k) and w1p.dtype == dt and w1p.is_contiguous()
+        assert w2p.shape == (16, cout, cout) and w2p.dtype == dt and w2p.is_contiguous()
+        assert not w1p[:, 9 * cin:].any()
+        dy, dx, ci, co = 2, 1, cin - 1, cout - 3
+        assert w1p[co, (dy * 3 + dx) * cin + ci] == w1[dy, dx, ci, co].to(dt)
+        assert w2p[3 * 4 + 2, co, 5] == w2f[3, 2, 5, co].to(dt)
+        assert torch.equal(_unpack_w1(w1p, cin), w1.to(dt))
+        assert torch.equal(_unpack_w2f(w2p), w2f.to(dt))
+
+
+def _unpack_w1(w1p, cin):
+    """Inverse of ``pack_w1``: [Cout, K] -> HWIO."""
+    return w1p[:, :9 * cin].t().reshape(3, 3, cin, w1p.shape[0])
+
+
+def _unpack_w2f(w2p):
+    """Inverse of ``pack_w2f``: [16, Cout(out), Cout(in)] -> HWIO."""
+    c = w2p.shape[-1]
+    return w2p.reshape(4, 4, c, c).permute(0, 1, 3, 2)
+
+
+def _first_block_operands(v, ind):
+    """The kernel's operands as the block's prologue builds them (HWIO)."""
     p, u = v["params"], v["spectral"]
     w1, w2, w3 = (_sn_numpy(p[n]["kernel"], u[n]["u"])
                   for n in ("SNConv_0", "SNConv_1", "SNConv_2"))
     w2f = np.asarray(jl._fold_pool_axis(jl._fold_pool_axis(jnp.asarray(w2), 0), 1))
     code = ind @ v["codebook"]["mc_1"]["codebook"]
+    return [torch.from_numpy(np.array(a)) for a in  # writable copies
+            (code, w1, p["SNConv_0"]["bias"], w2f, p["SNConv_1"]["bias"],
+             w3.reshape(w1.shape[2], -1), p["SNConv_2"]["bias"])]
 
-    def t(a):
-        return torch.from_numpy(np.array(a))  # a writable copy
 
-    got = fd.first_dblock_reference(
-        t(x), t(code), t(w1), t(p["SNConv_0"]["bias"]), t(w2f), t(p["SNConv_1"]["bias"]),
-        t(w3.reshape(3, 8)), t(p["SNConv_2"]["bias"]))
-    assert got.shape == (3, 8, 6, 8)
+def test_first_dblock_reference_on_unpacked_operands_matches_jax(first_block_case):
+    """The packed layouts lose nothing: w1 and w2f packed (here in f32) and
+    unpacked again still give the JAX block's function."""
+    x, ind, v, want = first_block_case
+    code, w1, b1, w2f, b2, w3, b3 = _first_block_operands(v, ind)
+    w1u = _unpack_w1(fd.pack_w1(w1), w1.shape[2])
+    w2u = _unpack_w2f(fd.pack_w2f(w2f))
+    got = fd.first_dblock_reference(torch.from_numpy(x), code, w1u, b1, w2u, b2, w3, b3)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_first_block_gradient_matches_jax_grad(first_block_case):
+    """The port's block on the CPU (the plain path, which the card's backward
+    recomputes) has the JAX block's gradient with respect to x and every
+    parameter, in f32. Tolerance: f32 sums in another order,
+    ``rtol=1e-4, atol=1e-5 * max|grad|``."""
+    x, ind, v, _ = first_block_case
+    ct = np.random.default_rng(8).standard_normal((3, 8, 6, 8)).astype(np.float32)
+    jmod = JaxFirstBlock(8, 4, 0.5)
+    rest = {k: v[k] for k in v if k != "params"}
+
+    def loss(params, xx):
+        y = jmod.apply(dict(rest, params=params), xx, jnp.asarray(ind), False)
+        return jnp.sum(y * ct)
+
+    gp, gx = jax.grad(loss, argnums=(0, 1))(v["params"], jnp.asarray(x))
+    port = carry(_MCFirstDisResBlock(3, 8, 4, 0.5, _Seeds(torch.Generator())), v)
+    xt = nchw(x).requires_grad_(True)
+    (port(xt, torch.from_numpy(ind), False) * nchw(ct)).sum().backward()
+    pairs = [(xt.grad.permute(0, 2, 3, 1), gx)]
+    for name in ("SNConv_0", "SNConv_1", "SNConv_2"):
+        mod = getattr(port, name)
+        pairs.append((mod.weight.grad.permute(2, 3, 1, 0), gp[name]["kernel"]))
+        pairs.append((mod.bias.grad, gp[name]["bias"]))
+    for got, want in pairs:
+        want = np.asarray(want)
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4,
+                                   atol=1e-5 * np.abs(want).max())
 
 
 def _sn_numpy(kernel, u):
@@ -277,6 +351,16 @@ def test_first_dblock_wrapper_checks():
         fd._check(*a)
     with pytest.raises(ValueError):
         fd._check(args()[0].permute(0, 2, 1, 3), *args()[1:])
+
+
+def test_first_dblock_phase_tool_finds_its_places():
+    """``bench/first_dblock_phases.py`` compiles phases out of a copy of the
+    kernel source at fixed anchors; each must still occur once, in order."""
+    from mcgm_tpu_torch.bench import first_dblock_phases as ph
+    src = ph.guarded_source()
+    at = [src.index(text + anchor) for anchor, text in ph.GUARDS]
+    assert at == sorted(at)
+    assert src.count("#ifndef NO_CONV1") == src.count("#ifndef NO_CONV2") == 1
 
 
 # ---------------------------------------------------------- package rules
