@@ -21,13 +21,22 @@ Phases, each of which exits non-zero on failure:
    ``Sampler.sample_chunked`` over the class sweep in chunks of 128, then
    ``discriminate``; launch counts are zeroed just before that run and read
    just after; one chunk is held against the same model run f32 through the
-   plain versions.
+   plain versions;
+5. train: the CIFAR10 MCGAN GAN step at full width and depth with
+   ``bench.py``'s protocol (``mcgm_tpu_torch.bench.train_gan``: B=128, Adam,
+   5 D updates and 1 G update, fused D pass, hinge), 3 warm-up and 10 timed
+   steps through the kernels and as many through the plain versions, in turns
+   (kernel, plain, plain, kernel); launch counts are zeroed just before each
+   timed run and read just after (6 launches per step through the kernels, 0
+   through the plain versions); then one step from the same state and z on
+   both paths, losses and the first D update's gradients held within
+   ``5e-2 * max|plain|``.
 
 The last three lines are the card's name and power limit as ``nvidia-smi``
 gives them, one JSON object listing every kernel, and
 ``{"ok": true, "device": {...}}``. With ``--profile DIR`` one more G->D pass
-runs under ``torch.profiler`` after the checks. There is no CPU path: without a card the
-script exits 1 and prints no result.
+and one more train step run under ``torch.profiler`` after the checks. There
+is no CPU path: without a card the script exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -48,11 +57,14 @@ import time
 import torch
 import torch.nn.functional as F
 
+from mcgm_tpu_torch.bench import train_gan
 from mcgm_tpu_torch.config import process_control
 from mcgm_tpu_torch.kernels import build
 from mcgm_tpu_torch.kernels import first_dblock as fd
 from mcgm_tpu_torch.models import build_model
 from mcgm_tpu_torch.ops.layers import fold_pool
+from mcgm_tpu_torch.train.state import make_gan_train_step
+from mcgm_tpu_torch.utils import card_name_and_limit
 from mcgm_tpu_torch.workflows.generate import class_sweep
 from mcgm_tpu_torch.workflows.sampling import Sampler
 
@@ -61,19 +73,14 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 KERNEL_TOL = 2e-2  # max|kernel - plain| <= KERNEL_TOL * max|plain|, both bf16 out
 SLICE_TOL = 5e-2   # max|bf16 path - f32 plain path| <= SLICE_TOL * max|f32 plain path|
+TRAIN_TOL = 5e-2   # kernel path vs plain path, one train step: losses, first D gradients
+TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 NUM_MODE = 20
 DEV = torch.device("cuda")
 
 
 def log(*args):
     print(*args, flush=True)
-
-
-def card() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -238,61 +245,86 @@ PHASES = ("generate", "discriminate")
 def kernel_category(name: str) -> str:
     if "first_dblock" in name:
         return "first_dblock (hand kernel)"
-    if "xmma" in name or "cudnn" in name:
+    if any(k in name for k in ("xmma", "cudnn", "dgrad", "wgrad")):
         return "conv (cuDNN)"
-    if any(k in name for k in ("gemv", "gemm", "nvjet", "cublas", "dot_kernel")):
+    if any(k in name for k in ("gemv", "gemm", "nvjet", "cublas", "dot_kernel", "cutlass")):
         return "matmul (cuBLAS: Dense, SN power iterations)"
+    if "multi_tensor_apply" in name or "foreach" in name.lower():
+        return "optimizer (Adam, multi-tensor)"
     if "upsample" in name:
         return "nearest upsample"
     return "elementwise, casts, reductions, pooling"
 
 
-def profile_pass(g_then_d, out_dir: str) -> dict:
-    """One G->D pass of the sweep under ``torch.profiler``: device time by
-    kernel, by category and by phase (``generate`` / ``discriminate``), the
-    device's busy share of the host window, and a chrome trace in
-    ``out_dir``."""
+def device_profile(run, spans, out_dir: str, tag: str) -> dict:
+    """Run ``run()`` (which returns its host window in seconds) once under
+    ``torch.profiler``: device time by kernel and by category, the device's
+    busy share of the window, and for each named range in ``spans`` its
+    calls, its device span and the device time of the kernels inside it.
+    Writes a chrome trace and the full tables to ``out_dir``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(out_dir, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, _, t_g, t_gd = g_then_d(7, annotate=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "slice_trace.json"))
+        window_ms = run() * 1e3
+    prof.export_chrome_trace(os.path.join(out_dir, f"{tag}_trace.json"))
 
     # Device-side events: the kernels (and memsets / copies), plus one
-    # annotation per phase that spans that phase's kernels on the device's
-    # timeline. A kernel launched through ctypes has no aten op above it, so
-    # only these device-side events see it.
+    # annotation per named range that spans that range's kernels on the
+    # device's timeline. A kernel launched through ctypes has no aten op
+    # above it, so only these device-side events see it.
+    # Other annotations (torch's own, as ``Optimizer.step#Adam.step``) are
+    # neither kernels nor named ranges, and are left out.
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = {e.name: e.time_range for e in dev if e.name in PHASES}
-    kern = [e for e in dev if e.name not in PHASES]
+    ranges = {}
+    for e in dev:
+        if e.name in spans:
+            ranges.setdefault(e.name, []).append(e.time_range)
+    kern = [e for e in dev if e.name not in spans and not getattr(e, "is_user_annotation", False)]
     by_name, by_cat = {}, {}
-    phase_busy = dict.fromkeys(PHASES, 0.0)
+    span_busy = {n: [0.0] * len(rs) for n, rs in ranges.items()}  # per call of the range
     for e in kern:
         ms = (e.time_range.end - e.time_range.start) / 1e3
         tot, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (tot + ms, n + 1)
         cat = kernel_category(e.name)
         by_cat[cat] = by_cat.get(cat, 0.0) + ms
-        for p, r in spans.items():
-            if r.start <= e.time_range.start < r.end:
-                phase_busy[p] += ms
+        for name, rs in ranges.items():
+            for i, r in enumerate(rs):
+                if r.start <= e.time_range.start < r.end:
+                    span_busy[name][i] += ms
     kernels = sorted(((n, ms, c) for n, (ms, c) in by_name.items()), key=lambda k: -k[1])
     busy = sum(ms for _, ms, _ in kernels)
-    rec = {"window_ms": t_gd * 1e3, "generate_window_ms": t_g * 1e3, "device_busy_ms": busy,
-           "device_busy_share": busy / (t_gd * 1e3),
-           "phase_device_span_ms": {p: (r.end - r.start) / 1e3 for p, r in spans.items()},
-           "phase_device_busy_ms": phase_busy,
+    rec = {"window_ms": window_ms, "device_busy_ms": busy, "device_busy_share": busy / window_ms,
+           "kernel_launches": len(kern),
+           "span_calls": {n: len(rs) for n, rs in ranges.items()},
+           "span_device_ms": {n: sum(r.end - r.start for r in rs) / 1e3
+                              for n, rs in ranges.items()},
+           "span_device_busy_ms": {n: sum(b) for n, b in span_busy.items()},
+           "span_device_busy_ms_per_call": span_busy,
            "category_ms": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
            "top_kernels": [{"name": n[:120], "ms": ms, "calls": c} for n, ms, c in kernels[:10]]}
-    with open(os.path.join(out_dir, "slice_profile.json"), "w") as f:
+    with open(os.path.join(out_dir, f"{tag}_profile.json"), "w") as f:
         json.dump(dict(rec, all_kernels=[{"name": n, "ms": ms, "calls": c}
                                          for n, ms, c in kernels]), f, indent=1)
     return rec
 
 
-def run_slice(name_limit: str, profile_dir: str | None = None):
+def profile_pass(g_then_d, out_dir: str) -> dict:
+    """One G->D pass of the sweep under ``torch.profiler``, with one range per
+    phase (``generate`` / ``discriminate``)."""
+    host = {}
+
+    def run():
+        _, _, host["generate_s"], t_gd = g_then_d(7, annotate=True)
+        return t_gd
+
+    rec = device_profile(run, PHASES, out_dir, "slice")
+    return dict(rec, generate_window_ms=host["generate_s"] * 1e3)
+
+
+def run_slice(name_limit: str):
     cfg = process_control({"data_name": "CelebA-HQ", "model_name": "mcgan",
                            "control": {"controller_rate": "0.5"}})
     cfg.update(classes_size=NUM_MODE, init_seed=0)
@@ -373,15 +405,127 @@ def run_slice(name_limit: str, profile_dir: str | None = None):
     log("slice:", json.dumps(result))
     if bad:
         raise SystemExit("slice failed: " + "; ".join(bad))
-    if profile_dir:
-        log("profile:", json.dumps(profile_pass(g_then_d, profile_dir)))
-    return launches, result
+    return launches, result, g_then_d
+
+
+# ------------------------------------------------------------------- train
+def _d_grads(ts):
+    """The gradients D's optimizer sees at each update, by name."""
+    seen = []
+    ts.d_opt.register_step_pre_hook(lambda *_: seen.append(
+        {n: p.grad.clone() for n, p in ts.model.discriminator.named_parameters()}))
+    return seen
+
+
+def train_kernel_vs_plain(cfg, step) -> dict:
+    """One step from the same state, batch and z through the kernels and
+    through the plain versions: the losses (against the largest of them, since
+    ``Loss`` may be near 0) and the first D update's gradients, each within
+    ``TRAIN_TOL * max|plain|``."""
+    (ts_k, batch), (ts_p, _) = train_gan.bench_state(cfg), train_gan.bench_state(cfg, plain=True)
+    g = torch.Generator(device=DEV).manual_seed(5)
+    z = [torch.randn((batch["img"].shape[0], ts_k.model.latent_size), generator=g, device=DEV)
+         for _ in range(train_gan.D_ITER + 1)]
+    seen_k, seen_p = _d_grads(ts_k), _d_grads(ts_p)
+    got, want = step(ts_k, batch, z=z), step(ts_p, batch, z=z)
+    scale = max(abs(w.item()) for w in want.values())
+    rec, bad = {"losses": {}, "grads_worst": None}, []
+    for k, w in want.items():
+        err = abs(got[k].item() - w.item())
+        rec["losses"][k] = {"kernel": got[k].item(), "plain": w.item(), "abs_err": err}
+        if not (math.isfinite(got[k].item()) and err <= TRAIN_TOL * scale):
+            bad.append(k)
+    worst = 0.0
+    for n, w in seen_p[0].items():
+        err = (seen_k[0][n].float() - w.float()).abs().max().item()
+        ref = w.float().abs().max().item()
+        if not (torch.isfinite(seen_k[0][n]).all() and err <= TRAIN_TOL * ref):
+            bad.append(n)
+        if ref > 0 and err / ref >= worst:
+            worst, rec["grads_worst"] = err / ref, {"name": n, "max_abs_err": err,
+                                                    "max_abs_ref": ref}
+    first = [n for n, gr in seen_k[0].items()
+             if n.startswith("blocks._MCFirstDisResBlock_0.") and not gr.abs().max() > 0]
+    if first:
+        bad.append(f"first block parameters without gradient: {first}")
+    rec["n_grads"] = len(seen_p[0])
+    if bad:
+        raise SystemExit(f"train: kernel path vs plain path disagree at {bad}: {json.dumps(rec)}")
+    return rec
+
+
+def train_profile(ts, batch, step, out_dir: str) -> dict:
+    """One train step (after warm-up) under ``torch.profiler``: the device's
+    busy share, the first D-block kernel's forward time, the plain-VJP
+    backward of the block (the kernels inside its range) and the categories."""
+    def run():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(ts, batch)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    rec = device_profile(run, (fd.BACKWARD_SPAN,), out_dir, "train")
+    rec["first_dblock_forward_ms"] = rec["category_ms"].get("first_dblock (hand kernel)", 0.0)
+    rec["first_dblock_backward_plain_vjp_ms"] = rec["span_device_busy_ms"].get(fd.BACKWARD_SPAN)
+    return rec
+
+
+def run_train(name_limit: str):
+    """The CIFAR10 MCGAN train step at bench shapes, through the kernels and
+    through the plain versions in turns; cuDNN may use TF32 for f32 convs, as
+    torch allows by default and the bench script runs."""
+    cfg = train_gan.bench_config()
+    step = make_gan_train_step(train_gan.D_ITER)
+    t0 = time.perf_counter()
+    states = {plain: train_gan.bench_state(cfg, plain=plain) for plain in (False, True)}
+    model = states[False][0].model
+    log(f"train: MCGAN CIFAR10, G {cfg['gan']['generator_hidden_size']}, "
+        f"D {cfg['gan']['discriminator_hidden_size']}, {cfg['classes_size']} modes, "
+        f"{sum(p.numel() for p in model.parameters())} parameters, "
+        f"B={cfg['batch_size']['train']}, compute {model.compute_dtype}, d_iter "
+        f"{train_gan.D_ITER}, built in {time.perf_counter() - t0:.1f} s")
+    runs = {False: [], True: []}
+    torch.cuda.reset_peak_memory_stats()
+    launches = None
+    for plain in (False, True, True, False):
+        ts, batch = states[plain]
+        res = train_gan.time_steps(ts, batch, step, TRAIN_STEPS, TRAIN_WARMUP)
+        if launches is None:  # the counted run of the main path: counts zeroed just before
+            launches = {"first_dblock": fd.first_dblock.launches}
+        runs[plain].append(res)
+        log(f"train {'plain' if plain else 'kernel'}:", json.dumps(res))
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    bad = []
+    want = {False: train_gan.D_ITER + 1, True: 0}
+    for plain, rs in runs.items():
+        for r in rs:
+            if r["first_dblock_launches_per_step"] != want[plain]:
+                bad.append(f"{'plain' if plain else 'kernel'} path: "
+                           f"{r['first_dblock_launches_per_step']} launches per step, "
+                           f"want {want[plain]}")
+            if not all(math.isfinite(v) for v in r["losses"].values()):
+                bad.append(f"non-finite losses {r['losses']}")
+    if bad:
+        raise SystemExit("train failed: " + "; ".join(bad))
+    cmp = train_kernel_vs_plain(cfg, step)
+    log("train kernel vs plain:", json.dumps(cmp))
+    result = {"kernel_images_per_s": [r["images_per_sec"] for r in runs[False]],
+              "plain_images_per_s": [r["images_per_sec"] for r in runs[True]],
+              "kernel_ms_per_step": [r["ms_per_step"] for r in runs[False]],
+              "plain_ms_per_step": [r["ms_per_step"] for r in runs[True]],
+              "steps": TRAIN_STEPS, "warmup": TRAIN_WARMUP, "batch": cfg["batch_size"]["train"],
+              "launches_per_step": runs[False][0]["first_dblock_launches_per_step"],
+              "peak_mem_gib": peak_gib, "card": name_limit}
+    log("train:", json.dumps(result))
+    return launches, result, lambda out_dir: train_profile(*states[False], step, out_dir)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="also profile one G->D pass; trace and tables go to DIR")
+                    help="also profile one G->D pass and one train step; traces and tables go to DIR")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -389,7 +533,7 @@ def main() -> int:
         return 1
     torch.backends.cudnn.allow_tf32 = False  # the plain versions are f32 references
     torch.backends.cuda.matmul.allow_tf32 = False
-    name_limit = card()
+    name_limit = card_name_and_limit()
     log(f"card: {name_limit}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -411,6 +555,8 @@ def main() -> int:
     full = check_first_dblock((128, 128, 128, 3, 64), seed=0, timed=True)
     tail = check_first_dblock((16, 128, 128, 3, 64), seed=3, timed=True)  # the sweep's tail
     cifar = check_first_dblock((512, 32, 32, 3, 128), seed=4, timed=True)  # CIFAR's test batch
+    train_d = check_first_dblock((256, 32, 32, 3, 128), seed=9, timed=True)  # fused D pass
+    train_g = check_first_dblock((128, 32, 32, 3, 128), seed=10, timed=True)  # G update's D pass
     check_first_dblock((3, 32, 32, 3, 128), seed=1, timed=False)
     check_first_dblock((2, 30, 70, 1, 64), seed=2, timed=False)  # ragged tiles
     check_first_dblock((1, 128, 128, 3, 64), seed=5, timed=False)  # fewer items than blocks
@@ -418,21 +564,28 @@ def main() -> int:
     check_first_dblock_grad((2, 16, 12, 3, 64), seed=7)
     check_first_dblock_grad((2, 8, 12, 1, 128), seed=8)
 
-    launches, _ = run_slice(name_limit, args.profile)
+    serve_launches, _, g_then_d = run_slice(name_limit)
+    torch.backends.cudnn.allow_tf32 = True  # torch's default, as the bench script runs
+    train_launches, _, profile_train = run_train(name_limit)
+    if args.profile:  # last, so that no timed run follows a profiler session
+        log("profile:", json.dumps(profile_pass(g_then_d, args.profile)))
+        log("train profile:", json.dumps(profile_train(args.profile)))
 
     kernels = [{
         "name": "first_dblock", "route": "cuda",
         "source": "mcgm_tpu_torch/csrc/first_dblock.cu",
         "replaces": "tools/ab_first_block.py:159",
-        "launches": launches["first_dblock"], "max_abs_err": full["max_abs_err"],
-        "ms": full["ms"], "plain_ms": full["plain_ms"], "bound_ms": full["bound_ms"],
-        "max_err": full["max_abs_err"], "kernel_ms": full["ms"],
-        "bound_by": full["bound_by"], "library_ms": full["library_ms"],
+        "launches": train_launches["first_dblock"], "max_abs_err": train_d["max_abs_err"],
+        "ms": train_d["ms"], "plain_ms": train_d["plain_ms"], "bound_ms": train_d["bound_ms"],
+        "bound_by": train_d["bound_by"], "library_ms": train_d["library_ms"],
         "library": "cuDNN bf16 chain: conv3x3, relu*code, conv4x4/s2, avgpool+conv1x1",
-        "shape": full["shape"], "wrapper_ms": full["wrapper_ms"],
-        "roofline_share": full["roofline_share"],
-        "other_shapes": [{k: r[k] for k in ("shape", "ms", "wrapper_ms", "bound_ms", "plain_ms",
-                                            "library_ms", "max_abs_err")} for r in (tail, cifar)],
+        "shape": train_d["shape"], "wrapper_ms": train_d["wrapper_ms"],
+        "roofline_share": train_d["roofline_share"],
+        "launches_by_path": {"train_cifar10": train_launches["first_dblock"],
+                             "serve_128px": serve_launches["first_dblock"]},
+        "other_shapes": [{k: r[k] for k in ("shape", "ms", "wrapper_ms", "bound_ms", "bound_by",
+                                            "plain_ms", "library_ms", "max_abs_err")}
+                         for r in (train_g, full, tail, cifar)],
     }]
     log(name_limit)
     log(json.dumps({"kernels": kernels}))

@@ -62,3 +62,11 @@ def from_jax_variables(variables) -> dict[str, torch.Tensor]:
                 a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
             state[_key(mod, name)] = torch.from_numpy(np.array(a, np.float32, order="C"))
     return state
+
+
+def from_jax_gan_train_state(g_params, d_params, state) -> dict[str, torch.Tensor]:
+    """The ``state_dict`` of a JAX ``GANTrainState``'s generator and
+    discriminator parameters and its mutable collections (``ts.state``:
+    BatchNorm statistics, spectral ``u``, codebooks)."""
+    return from_jax_variables({"params": {"generator": g_params, "discriminator": d_params},
+                               **state})

@@ -15,8 +15,10 @@ On the card the call is a ``torch.autograd.Function``: its forward is the
 kernel, its backward the VJP of :func:`first_dblock_reference` at the same
 inputs, recomputed: f32 arithmetic with weights and h rounded to x's dtype
 as the kernel rounds them, so the ReLU masks are the forward's up to the
-order of f32 sums. The Pallas kernel had no backward; a backward kernel comes
-with the GAN train step. ``code`` gets no gradient: the mode code is a
+order of f32 sums. The Pallas kernel had no backward, so none is written
+here yet; each backward call runs inside a profiler range named
+:data:`BACKWARD_SPAN`, so a trace shows its cost per train step. ``code``
+gets no gradient: the mode code is a
 constant of the loss, as in the JAX package (``stop_gradient`` in
 ``mc_gate``).
 """
@@ -31,6 +33,7 @@ import torch.nn.functional as F
 from . import build
 
 KERNEL = "first_dblock"
+BACKWARD_SPAN = "first_dblock.backward (plain VJP)"  # a profiler range per backward call
 
 
 def first_dblock_reference(x, code, w1, b1, w2f, b2, w3, b3):
@@ -147,7 +150,7 @@ class _FirstDBlock(torch.autograd.Function):
         need[1] = False  # code: a constant of the loss
         if not any(need):
             return (None,) * len(need)
-        with torch.enable_grad():
+        with torch.enable_grad(), torch.profiler.record_function(BACKWARD_SPAN):
             leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, need)]
             y = first_dblock_reference(*leaves)
             grads = iter(torch.autograd.grad(y, [t for t, n in zip(leaves, need) if n], gy))

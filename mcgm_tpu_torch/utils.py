@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import os
 import pickle
+import subprocess
 
 import numpy as np
 import torch
@@ -52,3 +53,14 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def card_name_and_limit() -> str:
+    """The first card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them
+    (``"NVIDIA H100 80GB HBM3, 700.00 W"``): the line to keep beside every
+    number measured on it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]

@@ -8,7 +8,10 @@ them without the repo's conftest:
 
 Tolerance: ``max|kernel - plain| <= 2e-2 * max|plain|``, both rounded to
 bf16 at the output and h rounded to bf16 in both (the kernel's f32 sums run
-in another order than cuDNN's).
+in another order than cuDNN's). A GAN train step through the kernel against
+the same step through the plain version: ``5e-2 * max|plain|`` for the
+losses and the first D update's gradients, since the step's bf16 activations
+carry the kernel's rounding through D's other layers.
 """
 
 import math
@@ -16,11 +19,22 @@ import math
 import pytest
 import torch
 
+from mcgm_tpu_torch.bench import train_gan
 from mcgm_tpu_torch.kernels import first_dblock as fd
 from mcgm_tpu_torch.ops.layers import fold_pool
+from mcgm_tpu_torch.train.state import make_gan_train_step
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-2
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two torch threads: the tests run beside other workers."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
 
 
 @pytest.fixture
@@ -56,6 +70,8 @@ def _args(dev, B, H, W, cin, cout, seed=0):
     (1, 128, 128, 3, 64),   # 32 work items: fewer than the persistent grid's blocks
     (5, 128, 128, 3, 64),   # 160 work items: not a multiple of the grid
     (512, 32, 32, 3, 128),  # CIFAR's test batch
+    (256, 32, 32, 3, 128),  # the train step's fused D pass (real and fake)
+    (128, 32, 32, 3, 128),  # the train step's G update
 ])
 def test_first_dblock_matches_plain(dev, shape):
     B, H, W, cin, cout = shape
@@ -103,3 +119,54 @@ def test_first_dblock_gradient_matches_plain(dev, shape):
         assert g.shape == w.shape and g.dtype == w.dtype, i
         err = (g.float() - w.float()).abs().max().item()
         assert err <= TOL * w.float().abs().max().item(), (i, err)
+
+
+# ------------------------------------------------------------- train step
+D_ITER = 2
+TRAIN_TOL = 5e-2
+SMALL_GAN = {"latent_size": 32, "generator_hidden_size": [64] * 4,
+             "discriminator_hidden_size": [64] * 4, "embedding_size": 8}
+
+
+def _train_state(dev, plain=False):
+    """A small CIFAR10 MCGAN (D's first block at 32x32x3 -> 64, the kernel's
+    narrowest C_out) with Adam, B=8, bf16 operands, weights from seed 0."""
+    return train_gan.bench_state(train_gan.bench_config(gan=SMALL_GAN, batch=8), dev, plain)
+
+
+def _d_grads(ts):
+    """The gradients D's optimizer sees at each update, by name."""
+    seen = []
+    ts.d_opt.register_step_pre_hook(lambda *_: seen.append(
+        {n: p.grad.clone() for n, p in ts.model.discriminator.named_parameters()}))
+    return seen
+
+
+def test_train_step_launches_the_kernel_in_every_d_pass(dev):
+    ts, batch = _train_state(dev)
+    seen = _d_grads(ts)
+    before = fd.first_dblock.launches
+    metrics = make_gan_train_step(D_ITER)(ts, batch)
+    torch.cuda.synchronize()
+    assert fd.first_dblock.launches == before + D_ITER + 1
+    assert all(torch.isfinite(m) for m in metrics.values())
+    first = {n: g for n, g in seen[0].items() if n.startswith("blocks._MCFirstDisResBlock_0.")}
+    assert len(first) == 6  # SNConv_0/1/2 weights and biases
+    for n, g in first.items():
+        assert torch.isfinite(g).all() and g.abs().max() > 0, n
+
+
+def test_train_step_kernel_path_matches_plain(dev):
+    (ts_k, batch), (ts_p, _) = _train_state(dev), _train_state(dev, plain=True)
+    g = torch.Generator(device=dev).manual_seed(4)
+    z = [torch.randn((8, SMALL_GAN["latent_size"]), generator=g, device=dev)
+         for _ in range(D_ITER + 1)]
+    seen_k, seen_p = _d_grads(ts_k), _d_grads(ts_p)
+    step = make_gan_train_step(D_ITER)
+    got, want = step(ts_k, batch, z=z), step(ts_p, batch, z=z)
+    scale = max(abs(w.item()) for w in want.values())  # Loss = Loss_D + Loss_G may be near 0
+    for k in want:
+        assert abs(got[k].item() - want[k].item()) <= TRAIN_TOL * scale, k
+    for n, w in seen_p[0].items():
+        err = (seen_k[0][n].float() - w.float()).abs().max().item()
+        assert err <= TRAIN_TOL * w.float().abs().max().item(), (n, err)

@@ -45,6 +45,15 @@ GAN_CFG = {"latent_size": 16, "generator_hidden_size": [32, 16, 16, 8, 8],
            "discriminator_hidden_size": [8, 8, 16, 16, 32], "embedding_size": 8}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two torch threads: the tests run beside other workers."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
 def _fill(tree, rng):
     """Values for the variable tree of the JAX model, from ``rng``: kernels
     ~ N(0, 1/fan_in), binary codebooks, unit ``u``, and non-trivial

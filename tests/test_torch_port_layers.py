@@ -29,6 +29,15 @@ TOL = dict(rtol=1e-4, atol=1e-5)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two torch threads: the tests run beside other workers."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
 def nchw(a):
     return torch.from_numpy(np.ascontiguousarray(a)).permute(0, 3, 1, 2)
 
@@ -178,6 +187,98 @@ def test_pool_and_residual_functions():
     np.testing.assert_allclose(
         nhwc(pl.add_upsampled_nearest(nchw(x), nchw(sc))),
         np.asarray(jl.add_upsampled_nearest(jnp.asarray(x), jnp.asarray(sc))), **TOL)
+
+
+# ------------------------------------------------------------- layer VJPs
+# name -> (JAX module, port module, input shape, JAX apply kwargs, port kwargs)
+VJP_LAYERS = {
+    **{n: (jf, pf, (2, 8, 8, 5), {}, {}) for n, (jf, pf) in LAYERS.items()},
+    "dense": (lambda: jl.Dense(9, kernel_init=jl.xavier_uniform), lambda: pl.Dense(7, 9),
+              (4, 7), {}, {}),
+    "batchnorm_train": (jl.BatchNorm, lambda: pl.BatchNorm(5), (4, 6, 6, 5),
+                        {"use_running_average": False, "mutable": ["batch_stats"]},
+                        {"train": True}),
+    **{f"{n}_update_{us}": (jf, pf, (2, 8, 8, 5) if nd == 4 else (3, 5),
+                            {"update_stats": us, "mutable": ["spectral"]}, {"update_stats": us})
+       for n, (jf, pf, nd) in SN_LAYERS.items() for us in (False, True)},
+}
+
+
+def _nhwc_out(t):
+    return t.permute(0, 2, 3, 1) if t.ndim == 4 else t
+
+
+def _port_in(a):
+    return (nchw(a) if a.ndim == 4 else torch.from_numpy(a)).requires_grad_(True)
+
+
+def _assert_grads_close(got, want, what):
+    """f32 sums in another order: ``rtol=1e-4, atol=1e-5 * max|grad|``."""
+    want = np.asarray(want)
+    assert tuple(got.shape) == want.shape, what
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-4,
+                               atol=1e-5 * np.abs(want).max(), err_msg=what)
+
+
+@pytest.mark.parametrize("name", sorted(VJP_LAYERS))
+def test_layer_vjp_matches_jax(name):
+    """Each ported layer's gradient with respect to its input and every
+    parameter, against ``jax.vjp`` of the JAX layer at the same cotangent
+    (the train step's backward is built from these)."""
+    jf, pf, shape, jkw, pkw = VJP_LAYERS[name]
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal(shape).astype(np.float32)
+    jmod = jf()
+    init_kw = {k: a for k, a in jkw.items() if k != "mutable"}
+    v = jmod.init(jax.random.PRNGKey(3), jnp.asarray(x), **init_kw)
+
+    def f(params, xx):
+        out = jmod.apply({**v, "params": params}, xx, **jkw)
+        return out[0] if "mutable" in jkw else out
+
+    port = carry(pf(), v)
+    xt = _port_in(x)
+    y = _nhwc_out(port(xt, **pkw))
+    ct = rng.standard_normal(tuple(y.shape)).astype(np.float32)
+    (y * torch.from_numpy(ct)).sum().backward()
+    # one compiled program: cheaper than the VJP's eager dispatches
+    gp, gx = jax.jit(lambda p, xx, c: jax.vjp(f, p, xx)[1](c))(v["params"], x, ct)
+    _assert_grads_close(_nhwc_out(xt.grad), gx, "x")
+    want = from_jax_variables({"params": gp})
+    got = {n: p.grad for n, p in port.named_parameters()}
+    assert set(got) == set(want)
+    for n, g in got.items():
+        _assert_grads_close(g, want[n].numpy(), n)
+
+
+_CB = jc.make_codebook(3, 6, 4)
+_IND = np.eye(6, dtype=np.float32)[[0, 5, 2, 2]]
+# name -> (JAX function, port function, input shapes, NHWC)
+VJP_FUNCTIONS = {
+    "mc_gate": (lambda x: jc.mc_gate(x, jnp.asarray(_IND), _CB),
+                lambda x: pc.mc_gate(x, torch.from_numpy(_IND), torch.from_numpy(np.array(_CB))),
+                [(4, 5, 5, 4)]),
+    "avg_pool": (lambda x: jl.avg_pool(x, 2), lambda x: pl.avg_pool(x, 2), [(2, 8, 8, 4)]),
+    "global_sum_pool": (jl.global_sum_pool, pl.global_sum_pool, [(2, 8, 8, 4)]),
+    "add_upsampled_nearest": (jl.add_upsampled_nearest, pl.add_upsampled_nearest,
+                              [(2, 8, 8, 4), (2, 4, 4, 4)]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(VJP_FUNCTIONS))
+def test_function_vjp_matches_jax(name):
+    """The parameter-free ops of the GAN path: gradients with respect to
+    every input against ``jax.vjp`` (the mode code carries none)."""
+    jf, pf, shapes = VJP_FUNCTIONS[name]
+    rng = np.random.default_rng(10)
+    xs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    ins = [_port_in(a) for a in xs]
+    y = _nhwc_out(pf(*ins))
+    ct = rng.standard_normal(tuple(y.shape)).astype(np.float32)
+    (y * torch.from_numpy(ct)).sum().backward()
+    want = jax.jit(lambda c, *a: jax.vjp(jf, *a)[1](c))(ct, *xs)
+    for i, (t, w) in enumerate(zip(ins, want)):
+        _assert_grads_close(_nhwc_out(t.grad), w, f"input {i}")
 
 
 def test_initializers():
