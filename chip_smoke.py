@@ -30,12 +30,26 @@ Phases, each of which exits non-zero on failure:
    timed run and read just after (6 launches per step through the kernels, 0
    through the plain versions); then one step from the same state and z on
    both paths, losses and the first D update's gradients held within
-   ``5e-2 * max|plain|``.
+   ``5e-2 * max|plain|``;
+6. trainer: the CIFAR10 MCGAN trained as a user would,
+   ``python -m mcgm_tpu_torch.cli.train`` through ``cli.train.main`` at full
+   width and depth, on a CIFAR10-shaped dataset (50,000 + 10,000 seeded
+   uint8 images written as ``CIFAR10/processed/{train,test}.npz``) with
+   seeded random InceptionV3 weights written as
+   ``inception/inception_v3.pkl``: 2 epochs of 20 steps, each with the full
+   10,000-image fixed-z eval (InceptionV3 at 299x299, IS / FID) and a
+   checkpoint copied to ``_best``; then a second run with ``resume_mode=1``
+   to epoch 3, whose resumed state (parameters, buffers, optimizer moments,
+   schedulers, logger history) must equal the saved one. ``first_dblock``
+   must launch 6 times per step. 64 images' InceptionV3 features on the
+   card are held against the same network's f32 features on the CPU within
+   ``INCEPTION_TOL * max|cpu|``.
 
 The last three lines are the card's name and power limit as ``nvidia-smi``
 gives them, one JSON object listing every kernel, and
-``{"ok": true, "device": {...}}``. With ``--profile DIR`` one more G->D pass
-and one more train step run under ``torch.profiler`` after the checks. There
+``{"ok": true, "device": {...}}``. With ``--profile DIR`` one more G->D pass,
+one more train step, one more trainer epoch and one chunk of its eval sweep
+run under ``torch.profiler`` after the checks. There
 is no CPU path: without a card the script exits 1 and prints no result.
 """
 
@@ -54,17 +68,24 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from mcgm_tpu_torch.bench import train_gan
+from mcgm_tpu_torch.cli import train as cli_train
 from mcgm_tpu_torch.config import process_control
+from mcgm_tpu_torch.data.datasets import _save_processed
+from mcgm_tpu_torch.evals.inception import InceptionV3, inception_feature_fn
+from mcgm_tpu_torch.io.checkpoint import to_numpy
+from mcgm_tpu_torch.io.jax_import import to_jax_inception
 from mcgm_tpu_torch.kernels import build
 from mcgm_tpu_torch.kernels import first_dblock as fd
 from mcgm_tpu_torch.models import build_model
 from mcgm_tpu_torch.ops.layers import fold_pool
+from mcgm_tpu_torch.report.logger import Logger
 from mcgm_tpu_torch.train.state import make_gan_train_step
-from mcgm_tpu_torch.utils import card_name_and_limit
+from mcgm_tpu_torch.utils import card_name_and_limit, save
 from mcgm_tpu_torch.workflows.generate import class_sweep
 from mcgm_tpu_torch.workflows.sampling import Sampler
 
@@ -77,6 +98,11 @@ TRAIN_TOL = 5e-2   # kernel path vs plain path, one train step: losses, first D 
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 NUM_MODE = 20
 DEV = torch.device("cuda")
+INCEPTION_TOL = 1e-3  # max|card - cpu| <= INCEPTION_TOL * max|cpu|, both f32
+TRAINER_STEPS, TRAINER_EPOCHS = 20, 2
+TRAINER_IMAGES = {"train": 50_000, "test": 10_000}  # CIFAR10's splits
+CIFAR10_CLASSES = ["airplane", "automobile", "bird", "cat", "deer", "dog", "frog", "horse",
+                   "ship", "truck"]
 
 
 def log(*args):
@@ -245,14 +271,14 @@ PHASES = ("generate", "discriminate")
 def kernel_category(name: str) -> str:
     if "first_dblock" in name:
         return "first_dblock (hand kernel)"
-    if any(k in name for k in ("xmma", "cudnn", "dgrad", "wgrad")):
+    if any(k in name for k in ("xmma", "cudnn", "dgrad", "wgrad", "convolve", "winograd")):
         return "conv (cuDNN)"
     if any(k in name for k in ("gemv", "gemm", "nvjet", "cublas", "dot_kernel", "cutlass")):
         return "matmul (cuBLAS: Dense, SN power iterations)"
     if "multi_tensor_apply" in name or "foreach" in name.lower():
         return "optimizer (Adam, multi-tensor)"
     if "upsample" in name:
-        return "nearest upsample"
+        return "upsample (G's nearest; the eval's bilinear to 299)"
     return "elementwise, casts, reductions, pooling"
 
 
@@ -522,6 +548,171 @@ def run_train(name_limit: str):
     return launches, result, lambda out_dir: train_profile(*states[False], step, out_dir)
 
 
+# ----------------------------------------------------------------- trainer
+def write_trainer_inputs(work: str) -> tuple[str, str]:
+    """A CIFAR10-shaped dataset and seeded random InceptionV3 weights, where
+    the trainer's own resolution finds them. Returns (data_dir, output_dir)."""
+    data_dir, out_dir = os.path.join(work, "data"), os.path.join(work, "output")
+    rng = np.random.default_rng(0)
+    for split, n in TRAINER_IMAGES.items():
+        img = rng.integers(0, 256, (n, 32, 32, 3), dtype=np.uint8)
+        _save_processed(os.path.join(data_dir, "CIFAR10"), split, "label", img,
+                        np.arange(n) % 10, CIFAR10_CLASSES)
+    # He-scaled convs and unit BatchNorm keep activations O(1) through the net
+    g = torch.Generator().manual_seed(0)
+    net = InceptionV3()
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith("conv.weight") or name == "fc.weight":
+                fan_in = p[0].numel()
+                p.copy_(torch.randn(p.shape, generator=g) * math.sqrt(2.0 / fan_in))
+            elif name == "fc.bias":
+                p.zero_()
+    save(to_jax_inception(net.state_dict()), os.path.join(out_dir, "inception", "inception_v3.pkl"))
+    return data_dir, out_dir
+
+
+def check_inception_card_vs_cpu(out_dir: str, data_dir: str) -> dict:
+    """64 CIFAR-shaped images' features and probabilities through InceptionV3
+    on the card against the same weights on the CPU, both f32."""
+    path = os.path.join(out_dir, "inception", "inception_v3.pkl")
+    with np.load(os.path.join(data_dir, "CIFAR10", "processed", "test.npz")) as z:
+        img = torch.from_numpy(z["img"][:64]).float() / 127.5 - 1
+    card = inception_feature_fn(path, DEV)(img.to(DEV))
+    cpu = inception_feature_fn(path, "cpu")(img)
+    rec, bad = {}, []
+    for name, got, want in zip(("features", "probs"), card, cpu):
+        err = (got.cpu() - want).abs().max().item()
+        scale = want.abs().max().item()
+        rec[name] = {"max_abs_err": err, "max_abs_ref": scale, "tolerance": INCEPTION_TOL * scale}
+        if not (torch.isfinite(got).all() and err <= INCEPTION_TOL * scale):
+            bad.append(name)
+    log("trainer inception card vs cpu:", json.dumps(rec))
+    if bad:
+        raise SystemExit(f"trainer: InceptionV3 on the card disagrees with the CPU at {bad}")
+    return rec
+
+
+def _state_mismatch(a, b, path: str = "") -> list:
+    """The paths at which two ``Experiment.state_dict`` snapshots (numpy)
+    differ: the model, optimizer moments and counts, schedulers, z
+    generator and the logger's history."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            return [f"{path} keys"]
+        return [p for k in a for p in _state_mismatch(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return [f"{path} length"]
+        return [p for i, (x, y) in enumerate(zip(a, b)) for p in _state_mismatch(x, y, f"{path}/{i}")]
+    if isinstance(a, np.ndarray):
+        return [] if isinstance(b, np.ndarray) and np.array_equal(a, b) else [path]
+    if isinstance(a, Logger):
+        return [] if dict(a.history) == dict(b.history) else [f"{path}.history"]
+    return [] if a == b else [path]
+
+
+def run_trainer(name_limit: str, work: str):
+    """The train CLI: 2 epochs, then resume_mode=1 to epoch 3."""
+    t0 = time.perf_counter()
+    data_dir, out_dir = write_trainer_inputs(work)
+    log(f"trainer: wrote CIFAR10-shaped data and InceptionV3 weights in "
+        f"{time.perf_counter() - t0:.1f} s")
+    incep = check_inception_card_vs_cpu(out_dir, data_dir)
+    argv = ["--data_name", "CIFAR10", "--model_name", "mcgan", "--control_name", "0.5",
+            "--data_dir", data_dir, "--output_dir", out_dir]
+    torch.cuda.reset_peak_memory_stats()
+    fd.first_dblock.launches = 0  # the counted run of the trainer path
+    t0 = time.perf_counter()
+    (exp,) = cli_train.main(argv + ["--num_epochs", str(TRAINER_EPOCHS)],
+                            limit_train_batches=TRAINER_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"first_dblock": fd.first_dblock.launches}
+    saved = to_numpy(exp.state_dict())
+
+    fd.first_dblock.launches = 0
+    t1 = time.perf_counter()
+    (exp3,) = cli_train.main(argv + ["--num_epochs", "3", "--resume_mode", "1"],
+                             limit_train_batches=TRAINER_STEPS)
+    torch.cuda.synchronize()
+    wall3 = time.perf_counter() - t1
+    launches3 = fd.first_dblock.launches
+    resumed = exp3.resumed or {}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    bad = []
+    steps = TRAINER_EPOCHS * TRAINER_STEPS
+    if launches["first_dblock"] != 6 * steps:
+        bad.append(f"first_dblock launched {launches['first_dblock']} times in {steps} steps")
+    if launches3 != 6 * TRAINER_STEPS:
+        bad.append(f"resumed run: first_dblock launched {launches3} times")
+    if resumed.get("epoch") != 3 or [s["epoch"] for s in exp3.epoch_stats] != [3]:
+        bad.append(f"resumed at epoch {resumed.get('epoch')}, ran "
+                   f"{[s['epoch'] for s in exp3.epoch_stats]}")
+    mismatch = _state_mismatch(saved, resumed["state"]) if resumed else ["nothing resumed"]
+    if mismatch:
+        bad.append(f"resumed state differs from the saved one at {mismatch[:8]}")
+    hist = exp3.logger.history
+    scores = {k: hist.get(f"test/{k}", []) for k in ("InceptionScore", "FID")}
+    if any(len(v) != 3 or not all(math.isfinite(x) for x in v) for v in scores.values()):
+        bad.append(f"IS / FID not finite for 3 epochs: {scores}")
+    if not all(math.isfinite(x) for x in hist.get("train/Loss", [math.nan])):
+        bad.append("non-finite train loss")
+    for kind in ("checkpoint", "best"):
+        if not os.path.exists(os.path.join(out_dir, "model", f"{exp.tag}_{kind}.pkl")):
+            bad.append(f"no {kind} file")
+    stats = exp.epoch_stats + exp3.epoch_stats
+    result = {
+        "card": name_limit, "steps_per_epoch": TRAINER_STEPS,
+        "batch": exp.cfg["batch_size"]["train"], "eval_chunk": exp.cfg["batch_size"]["test"],
+        "train_images_per_s": [s["train_images_per_s"] for s in stats],
+        # the host's enqueue rate alone: near train_images_per_s, the loop is host-bound
+        "host_enqueue_images_per_s": [s["host_enqueue"]["items_per_s"] for s in stats],
+        "eval_images": [s["eval_images"] for s in stats],
+        "eval_seconds": [s["eval_seconds"] for s in stats],
+        "eval_images_per_s": [s["eval_images"] / s["eval_seconds"] for s in stats],
+        "real_features_seconds": [s.get("real_features_seconds") for s in stats],
+        "test_epoch_seconds": [s["test_epoch_seconds"] for s in stats],
+        "checkpoint_snapshot_seconds": [s["checkpoint"]["snapshot_s"] for s in stats],
+        "checkpoint_write_seconds": [s["checkpoint"].get("write_s") for s in stats],
+        "checkpoint_join_seconds": [s["checkpoint"].get("join_s") for s in stats],
+        "run_wall_seconds": [wall, wall3],
+        "first_dblock_launches": launches["first_dblock"], "resumed_launches": launches3,
+        "launches_per_step": launches["first_dblock"] / steps,
+        "inception_score": scores["InceptionScore"], "fid": scores["FID"],
+        "peak_mem_gib": peak_gib, "inception_card_vs_cpu": incep,
+        "resumed_state_equal": not mismatch,
+    }
+    log("trainer:", json.dumps(result))
+    if bad:
+        raise SystemExit("trainer failed: " + "; ".join(bad))
+    return launches, result, lambda out_dir: trainer_profile(exp3, out_dir)
+
+
+def trainer_profile(exp, out_dir: str) -> dict:
+    """One more epoch of the finished trainer (20 steps, loader and metric
+    fetches included) and one 512-image chunk of its eval sweep (G, resize,
+    InceptionV3, moments), each under ``torch.profiler``."""
+    def timed(fn):
+        def run():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+        return run
+
+    chunk = exp.cfg["batch_size"]["test"]
+    C = np.arange(chunk) % exp.cfg["classes_size"]
+    epoch = device_profile(timed(lambda: exp.train_epoch(TRAINER_EPOCHS + 2)),
+                           (fd.BACKWARD_SPAN,), out_dir, "trainer_epoch")
+    epoch.pop("span_device_busy_ms_per_call")  # 120 calls: in the profile's file
+    return {"epoch": epoch,
+            "eval_chunk": device_profile(timed(lambda: exp.gan_eval_moments(C, chunk)), (),
+                                         out_dir, "trainer_eval_chunk")}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -567,9 +758,16 @@ def main() -> int:
     serve_launches, _, g_then_d = run_slice(name_limit)
     torch.backends.cudnn.allow_tf32 = True  # torch's default, as the bench script runs
     train_launches, _, profile_train = run_train(name_limit)
-    if args.profile:  # last, so that no timed run follows a profiler session
-        log("profile:", json.dumps(profile_pass(g_then_d, args.profile)))
-        log("train profile:", json.dumps(profile_train(args.profile)))
+    work = os.path.join(str(build.BUILD_DIR), "trainer_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        trainer_launches, _, profile_trainer = run_trainer(name_limit, work)
+        if args.profile:  # last, so that no timed run follows a profiler session
+            log("profile:", json.dumps(profile_pass(g_then_d, args.profile)))
+            log("train profile:", json.dumps(profile_train(args.profile)))
+            log("trainer profile:", json.dumps(profile_trainer(args.profile)))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     kernels = [{
         "name": "first_dblock", "route": "cuda",
@@ -582,7 +780,8 @@ def main() -> int:
         "shape": train_d["shape"], "wrapper_ms": train_d["wrapper_ms"],
         "roofline_share": train_d["roofline_share"],
         "launches_by_path": {"train_cifar10": train_launches["first_dblock"],
-                             "serve_128px": serve_launches["first_dblock"]},
+                             "serve_128px": serve_launches["first_dblock"],
+                             "trainer_cifar10": trainer_launches["first_dblock"]},
         "other_shapes": [{k: r[k] for k in ("shape", "ms", "wrapper_ms", "bound_ms", "bound_by",
                                             "plain_ms", "library_ms", "max_abs_err")}
                          for r in (train_g, full, tail, cifar)],

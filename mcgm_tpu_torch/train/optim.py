@@ -14,11 +14,13 @@ optimizer that applies the same chain in :meth:`_Chain.step`:
   0.9 and keeps lr inside the momentum trace, torch does none of these.
 
 The lr lives in each ``param_group`` and may be set between steps
-(:func:`set_learning_rate`); the host-side epoch ``Scheduler`` comes with the
-training loop.
+(:func:`set_learning_rate`); the host-side :class:`Scheduler` (port of the
+JAX package's) computes each epoch's lr, which the train loop writes there.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -48,6 +50,15 @@ class _Chain:
             torch._foreach_mul_(grads, scale)
         self._update(self.warmup_factor())
         self.count += 1
+
+    def state_dict(self) -> dict:
+        """torch's state, plus the count of updates the warm-up reads."""
+        return {**super().state_dict(), "chain_count": self.count}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        state_dict = dict(state_dict)
+        self.count = int(state_dict.pop("chain_count", 0))
+        super().load_state_dict(state_dict)
 
     def _update(self, factor: float) -> None:
         """torch's rule, with lr scaled by ``factor`` for this step."""
@@ -132,3 +143,76 @@ def set_learning_rate(opt: torch.optim.Optimizer, lr: float) -> None:
     """Set the lr of every param group; the next step uses it."""
     for g in opt.param_groups:
         g["lr"] = float(lr)
+
+
+class Scheduler:
+    """Host-side epoch scheduler (port of ``mcgm_tpu/train/optim.py::Scheduler``).
+
+    ``step(metric)`` advances one epoch and returns the new lr; the caller
+    writes it into its optimizers with :func:`set_learning_rate`. Names:
+    ``None``, ``StepLR``, ``MultiStepLR``, ``ExponentialLR``,
+    ``CosineAnnealingLR``, ``ReduceLROnPlateau`` (relative threshold, mode
+    ``cfg['plateau_mode']``) and ``CyclicLR`` (an epoch-level triangle over
+    ``[base, 10 base]`` with torch's 2000-step half cycle). Its state is a
+    plain dict for checkpoints.
+    """
+
+    def __init__(self, cfg: dict, base_lr: float | None = None):
+        self.name = cfg["scheduler_name"]
+        self.base_lr = cfg["lr"] if base_lr is None else base_lr
+        self.cfg = {
+            "step_size": cfg.get("step_size", 1),
+            "milestones": list(cfg.get("milestones", [])),
+            "factor": cfg.get("factor", 0.5),
+            "patience": cfg.get("patience", 10),
+            "threshold": cfg.get("threshold", 1e-3),
+            "min_lr": cfg.get("min_lr", 1e-5),
+            "num_epochs": cfg.get("num_epochs", 200),
+            "plateau_mode": cfg.get("plateau_mode", "min"),
+        }
+        self.epoch = 0
+        self.lr = self.base_lr
+        self.best = math.inf if self.cfg["plateau_mode"] == "min" else -math.inf
+        self.num_bad = 0
+
+    def step(self, metric: float | None = None) -> float:
+        self.epoch += 1
+        c, name = self.cfg, self.name
+        if name in ("None", None):
+            pass
+        elif name == "StepLR":
+            self.lr = self.base_lr * c["factor"] ** (self.epoch // c["step_size"])
+        elif name == "MultiStepLR":
+            self.lr = self.base_lr * c["factor"] ** sum(self.epoch >= m for m in c["milestones"])
+        elif name == "ExponentialLR":
+            self.lr = self.base_lr * 0.99 ** self.epoch
+        elif name == "CosineAnnealingLR":
+            self.lr = 0.5 * self.base_lr * (1 + math.cos(math.pi * self.epoch / c["num_epochs"]))
+        elif name == "ReduceLROnPlateau":
+            if metric is None:
+                raise ValueError("ReduceLROnPlateau requires a metric")
+            if c["plateau_mode"] == "max":
+                improved = metric > self.best * (1 + c["threshold"])
+            else:
+                improved = metric < self.best * (1 - c["threshold"])
+            if improved:
+                self.best, self.num_bad = metric, 0
+            else:
+                self.num_bad += 1
+            if self.num_bad > c["patience"]:
+                self.lr = max(self.lr * c["factor"], c["min_lr"])
+                self.num_bad = 0
+        elif name == "CyclicLR":
+            cycle = math.floor(1 + self.epoch / (2 * 2000))
+            frac = abs(self.epoch / 2000 - 2 * cycle + 1)
+            self.lr = self.base_lr + (10 * self.base_lr - self.base_lr) * max(0.0, 1 - frac)
+        else:
+            raise ValueError(f"Not valid scheduler name: {name}")
+        return self.lr
+
+    def state_dict(self) -> dict:
+        return {"epoch": self.epoch, "lr": self.lr, "best": self.best, "num_bad": self.num_bad}
+
+    def load_state_dict(self, d: dict) -> None:
+        self.epoch, self.lr, self.best = d["epoch"], d["lr"], d["best"]
+        self.num_bad = d["num_bad"]

@@ -20,8 +20,10 @@ import pytest
 import torch
 
 from mcgm_tpu_torch.bench import train_gan
+from mcgm_tpu_torch.config import load_config
 from mcgm_tpu_torch.kernels import first_dblock as fd
 from mcgm_tpu_torch.ops.layers import fold_pool
+from mcgm_tpu_torch.train import loop
 from mcgm_tpu_torch.train.state import make_gan_train_step
 
 pytestmark = pytest.mark.cuda
@@ -170,3 +172,34 @@ def test_train_step_kernel_path_matches_plain(dev):
     for n, w in seen_p[0].items():
         err = (seen_k[0][n].float() - w.float()).abs().max().item()
         assert err <= TRAIN_TOL * w.float().abs().max().item(), (n, err)
+
+
+# ---------------------------------------------------------------- trainer
+def test_trainer_epoch_on_the_card(dev, tmp_path):
+    """One epoch of the port's trainer on ``Synthetic`` at a small width
+    (D's first block at C_out 64): the staged images and every batch stay
+    on the card, and ``first_dblock`` launches 6 times per step."""
+    cfg = dict(load_config(), data_name="Synthetic", model_name="mcgan",
+               output_dir=str(tmp_path), derive_model_params=False, gan=SMALL_GAN,
+               derive_batch_size=False, batch_size={"train": 16, "test": 40},
+               limit_train_batches=3, num_epochs=1)
+    exp = loop.Experiment(cfg)
+    assert exp.device.type == "cuda"
+    exp.setup()
+    seen = []
+    step = exp.train_step
+
+    def recording(ts, batch):
+        seen.append((batch["img"].device.type, batch["label"].device.type))
+        return step(ts, batch)
+
+    exp.setup = lambda: None  # run() would build it all again
+    exp.train_step = recording
+    before = fd.first_dblock.launches
+    exp.run()
+    torch.cuda.synchronize()
+    assert fd.first_dblock.launches - before == 6 * 3
+    assert seen == [("cuda", "cuda")] * 3
+    assert exp.loaders["train"].staged()[0].device.type == "cuda"
+    assert all(torch.isfinite(torch.tensor(v)).all()
+               for k, v in exp.logger.history.items() if k.startswith("train/"))
