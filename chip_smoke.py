@@ -43,7 +43,31 @@ Phases, each of which exits non-zero on failure:
    schedulers, logger history) must equal the saved one. ``first_dblock``
    must launch 6 times per step. 64 images' InceptionV3 features on the
    card are held against the same network's f32 features on the CPU within
-   ``INCEPTION_TOL * max|cpu|``.
+   ``INCEPTION_TOL * max|cpu|``;
+7. cgan: the CIFAR10 CGAN train step at ``bench.py``'s shapes and full width
+   (G 256x4, D 128x4, latent 128, embedding 32, 10 modes, B=128, 5 D
+   updates and 1 G update, fused D pass, hinge, Adam 2e-4 with betas (0.0,
+   0.9), bf16 operands): 3 warm-up and 10 timed steps, images/s; its first
+   D-block has 3 + 32 input channels and runs as plain cuDNN convolutions,
+   so ``first_dblock`` must launch 0 times; one step from the same state and
+   z held against the same model run f32, losses and the first D update's
+   gradients within ``TRAIN_TOL * max|f32|``; the device's busy share of one
+   step from ``torch.profiler`` (after every timed phase);
+8. real: the real UCI digits of ``tests/fixtures/real_digits_shard.npz``
+   (32x32x1) staged as ``MNIST/processed/{train,test}.npz`` (1,297 / 500);
+   the classifier trained on them through ``cli.train.main`` (it becomes the
+   IS / FID feature model) and re-evaluated from ``_best`` through
+   ``cli.test_model.main``; then MCGAN and CGAN at the MNIST configuration's
+   full width (G [512,256,128,64], D [64,128,256,512], latent 128, B=128)
+   trained through ``cli.train.main`` with IS / FID every epoch, side by
+   side. ``first_dblock`` (its 1-channel, 64-wide instantiation) must
+   launch 6 times per MCGAN step and 0 times in the CGAN run;
+9. workflows: ``cli.sample`` on both real-digit ``_best`` checkpoints:
+   ``generate`` with ``save_npy`` (the 10 x 1000 sweep and its grid) and
+   without (grids), ``transit`` (an 11 x 10 grid), ``create`` at 10, 50 and
+   100 modes and with ``save_npy``; images/s per workflow; every dump
+   finite and in [0, 255], every PNG read back with the port's own decoder
+   and its size checked against its grid; 0 ``first_dblock`` launches.
 
 The last three lines are the card's name and power limit as ``nvidia-smi``
 gives them, one JSON object listing every kernel, and
@@ -73,11 +97,14 @@ import torch
 import torch.nn.functional as F
 
 from mcgm_tpu_torch.bench import train_gan
+from mcgm_tpu_torch.cli import sample as cli_sample
+from mcgm_tpu_torch.cli import test_model as cli_test_model
 from mcgm_tpu_torch.cli import train as cli_train
 from mcgm_tpu_torch.config import process_control
 from mcgm_tpu_torch.data.datasets import _save_processed
 from mcgm_tpu_torch.evals.inception import InceptionV3, inception_feature_fn
 from mcgm_tpu_torch.io.checkpoint import to_numpy
+from mcgm_tpu_torch.io.images import read_png
 from mcgm_tpu_torch.io.jax_import import to_jax_inception
 from mcgm_tpu_torch.kernels import build
 from mcgm_tpu_torch.kernels import first_dblock as fd
@@ -85,7 +112,7 @@ from mcgm_tpu_torch.models import build_model
 from mcgm_tpu_torch.ops.layers import fold_pool
 from mcgm_tpu_torch.report.logger import Logger
 from mcgm_tpu_torch.train.state import make_gan_train_step
-from mcgm_tpu_torch.utils import card_name_and_limit, save
+from mcgm_tpu_torch.utils import card_name_and_limit, save, vis_path
 from mcgm_tpu_torch.workflows.generate import class_sweep
 from mcgm_tpu_torch.workflows.sampling import Sampler
 
@@ -103,6 +130,10 @@ TRAINER_STEPS, TRAINER_EPOCHS = 20, 2
 TRAINER_IMAGES = {"train": 50_000, "test": 10_000}  # CIFAR10's splits
 CIFAR10_CLASSES = ["airplane", "automobile", "bird", "cat", "deer", "dog", "frog", "horse",
                    "ship", "truck"]
+REAL_DIGITS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                           "real_digits_shard.npz")
+REAL_TRAIN = 1297  # the rest of the 1,797 digits is the test split
+CLASSIFIER_EPOCHS, REAL_GAN_EPOCHS = 10, 20
 
 
 def log(*args):
@@ -443,12 +474,13 @@ def _d_grads(ts):
     return seen
 
 
-def train_kernel_vs_plain(cfg, step) -> dict:
+def train_kernel_vs_plain(cfg, step, plain_cfg=None) -> dict:
     """One step from the same state, batch and z through the kernels and
-    through the plain versions: the losses (against the largest of them, since
-    ``Loss`` may be near 0) and the first D update's gradients, each within
-    ``TRAIN_TOL * max|plain|``."""
-    (ts_k, batch), (ts_p, _) = train_gan.bench_state(cfg), train_gan.bench_state(cfg, plain=True)
+    through the plain versions (built from ``plain_cfg`` if given): the
+    losses (against the largest of them, since ``Loss`` may be near 0) and
+    the first D update's gradients, each within ``TRAIN_TOL * max|plain|``."""
+    (ts_k, batch) = train_gan.bench_state(cfg)
+    (ts_p, _) = train_gan.bench_state(plain_cfg or cfg, plain=True)
     g = torch.Generator(device=DEV).manual_seed(5)
     z = [torch.randn((batch["img"].shape[0], ts_k.model.latent_size), generator=g, device=DEV)
          for _ in range(train_gan.D_ITER + 1)]
@@ -471,7 +503,7 @@ def train_kernel_vs_plain(cfg, step) -> dict:
             worst, rec["grads_worst"] = err / ref, {"name": n, "max_abs_err": err,
                                                     "max_abs_ref": ref}
     first = [n for n, gr in seen_k[0].items()
-             if n.startswith("blocks._MCFirstDisResBlock_0.") and not gr.abs().max() > 0]
+             if "FirstDisResBlock_0." in n and not gr.abs().max() > 0]
     if first:
         bad.append(f"first block parameters without gradient: {first}")
     rec["n_grads"] = len(seen_p[0])
@@ -713,6 +745,180 @@ def trainer_profile(exp, out_dir: str) -> dict:
                                          out_dir, "trainer_eval_chunk")}
 
 
+# -------------------------------------------------------------------- cgan
+def run_cgan(name_limit: str):
+    """The CIFAR10 CGAN train step at bench shapes; its first D-block is plain
+    cuDNN (3 + 32 input channels), so no hand kernel launches. Returns the
+    launches, the result and a callable that profiles one step."""
+    cfg = train_gan.bench_config(model_name="cgan")
+    step = make_gan_train_step(train_gan.D_ITER)
+    t0 = time.perf_counter()
+    ts, batch = train_gan.bench_state(cfg)
+    model = ts.model
+    log(f"cgan: CGAN CIFAR10, G {cfg['gan']['generator_hidden_size']}, "
+        f"D {cfg['gan']['discriminator_hidden_size']}, embedding {cfg['gan']['embedding_size']}, "
+        f"{cfg['classes_size']} modes, {sum(p.numel() for p in model.parameters())} parameters, "
+        f"B={cfg['batch_size']['train']}, compute {model.compute_dtype}, d_iter "
+        f"{train_gan.D_ITER}, built in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    fd.first_dblock.launches = 0  # the counted run of the cgan path
+    runs = [train_gan.time_steps(ts, batch, step, TRAIN_STEPS, TRAIN_WARMUP) for _ in range(2)]
+    launches = {"first_dblock": fd.first_dblock.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    bad = []
+    if launches["first_dblock"] != 0:
+        bad.append(f"first_dblock launched {launches['first_dblock']} times; CGAN's first "
+                   f"block takes {3 + cfg['gan']['embedding_size']} channels and has no kernel")
+    if not all(math.isfinite(v) for r in runs for v in r["losses"].values()):
+        bad.append(f"non-finite losses {[r['losses'] for r in runs]}")
+    if bad:
+        raise SystemExit("cgan failed: " + "; ".join(bad))
+    cmp = train_kernel_vs_plain(cfg, step, dict(cfg, compute_dtype="float32"))
+    log("cgan bf16 vs f32:", json.dumps(cmp))
+    result = {"images_per_s": [r["images_per_sec"] for r in runs],
+              "ms_per_step": [r["ms_per_step"] for r in runs], "steps": TRAIN_STEPS,
+              "warmup": TRAIN_WARMUP, "batch": cfg["batch_size"]["train"],
+              "first_dblock_launches": launches["first_dblock"], "peak_mem_gib": peak_gib,
+              "card": name_limit}
+    log("cgan:", json.dumps(result))
+    return launches, result, lambda out_dir: train_profile(ts, batch, step, out_dir)
+
+
+# -------------------------------------------------------------------- real
+def stage_real_digits(data_dir: str) -> None:
+    """The repo's 1,797 real UCI digits (32x32x1 uint8) as
+    ``MNIST/processed/{train,test}.npz``: the first 1,297 train, the rest test."""
+    with np.load(REAL_DIGITS) as z:
+        img, labels = z["img"], z["labels"]
+    if img.dtype != np.uint8 or img.shape[1:] != (32, 32, 1):
+        raise SystemExit(f"real digits: {img.dtype} {img.shape}, want uint8 [N,32,32,1]")
+    classes = [str(i) for i in range(10)]
+    root = os.path.join(data_dir, "MNIST")
+    _save_processed(root, "train", "label", img[:REAL_TRAIN], labels[:REAL_TRAIN], classes)
+    _save_processed(root, "test", "label", img[REAL_TRAIN:], labels[REAL_TRAIN:], classes)
+
+
+def run_real(name_limit: str, work: str):
+    """Classifier, test_model, then MCGAN and CGAN on the real digits, all
+    through the CLIs' ``main``. Returns the launches by model, the result
+    and the CLI arguments and output folder the workflows reuse."""
+    data_dir, out_dir = os.path.join(work, "data"), os.path.join(work, "output")
+    stage_real_digits(data_dir)
+    base = ["--data_name", "MNIST", "--data_dir", data_dir, "--output_dir", out_dir]
+    t0 = time.perf_counter()
+    (cls,) = cli_train.main(base + ["--model_name", "classifier", "--control_name", "None",
+                                    "--num_epochs", str(CLASSIFIER_EPOCHS)])
+    cls_wall = time.perf_counter() - t0
+    (tested,) = cli_test_model.main(base + ["--model_name", "classifier", "--control_name", "None"])
+    acc = cls.logger.history["test/Accuracy"]
+    log(f"real classifier: {CLASSIFIER_EPOCHS} epochs in {cls_wall:.1f} s, accuracy on the train "
+        f"split by epoch {json.dumps(acc)}, test_model {json.dumps(dict(tested.mean))}")
+    bad = []
+    if not acc or not acc[-1] > 60:
+        bad.append(f"classifier accuracy {acc}")
+    if not os.path.exists(os.path.join(out_dir, "result", f"{cls.tag}.pkl")):
+        bad.append("no test_model result")
+    runs, launches = {}, {}
+    for model in ("mcgan", "cgan"):
+        torch.cuda.reset_peak_memory_stats()
+        fd.first_dblock.launches = 0  # the counted run of this model's path
+        t0 = time.perf_counter()
+        (exp,) = cli_train.main(base + ["--model_name", model, "--control_name", "0.5",
+                                        "--num_epochs", str(REAL_GAN_EPOCHS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[model] = fd.first_dblock.launches
+        steps = sum(st["train_steps"] for st in exp.epoch_stats)
+        hist = exp.logger.history
+        runs[model] = {
+            "tag": exp.tag, "run_wall_seconds": wall, "steps": steps,
+            "first_dblock_launches": launches[model],
+            "train_images_per_s": [st["train_images_per_s"] for st in exp.epoch_stats],
+            "eval_seconds": [st["eval_seconds"] for st in exp.epoch_stats],
+            "inception_score": hist.get("test/InceptionScore", []),
+            "fid": hist.get("test/FID", []),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        want = 6 * steps if model == "mcgan" else 0
+        if launches[model] != want:
+            bad.append(f"{model}: first_dblock launched {launches[model]} times in {steps} "
+                       f"steps, want {want}")
+        scores = runs[model]["inception_score"] + runs[model]["fid"]
+        if len(scores) != 2 * REAL_GAN_EPOCHS or not all(math.isfinite(x) for x in scores):
+            bad.append(f"{model}: IS / FID not finite every epoch")
+        if not os.path.exists(os.path.join(out_dir, "model", f"{exp.tag}_best.pkl")):
+            bad.append(f"{model}: no best checkpoint")
+    log("real: epoch | MCGAN images/s, eval s, IS, FID | CGAN images/s, eval s, IS, FID")
+    keys = ("train_images_per_s", "eval_seconds", "inception_score", "fid")
+    for e in range(REAL_GAN_EPOCHS):
+        cols = [" ".join(f"{runs[m][k][e]:.4f}" if e < len(runs[m][k]) else "-" for k in keys)
+                for m in ("mcgan", "cgan")]
+        log(f"real: {e + 1} | {cols[0]} | {cols[1]}")
+    result = {"card": name_limit, "classifier_accuracy": acc, "classifier_seconds": cls_wall,
+              "test_model": dict(tested.mean), **runs}
+    log("real:", json.dumps(result))
+    if bad:
+        raise SystemExit("real failed: " + "; ".join(bad))
+    return launches, result, (base, out_dir)
+
+
+def _grid_shape(images: int, nrow: int, side: int = 32) -> tuple:
+    """The PNG of ``images`` 1-channel images, ``nrow`` per row, padding 2."""
+    rows = (images + nrow - 1) // nrow
+    return (rows * (side + 2) + 2, nrow * (side + 2) + 2, 1)
+
+
+# (workflow, extra flags, dump name, images generated, [(grid name, images, per row)])
+WORKFLOW_CASES = [
+    ("generate", ["--save_npy", "true"], "generated", 10 * 1000,
+     [("generated_{tag}", 10 * 10, 10)]),
+    ("generate", [], None, 10 * 10, [("generated_{tag}_10", 10 * 10, 10)]),
+    ("transit", [], None, 11 * 10, [("transited_{tag}_10", 11 * 10, 10)]),
+    ("create", [], None, 10 * (10 + 50 + 100),
+     [(f"created_{{tag}}_{m}", 10 * m, m) for m in (10, 50, 100)]),
+    ("create", ["--save_npy", "true"], "created", 10 * 1000, [("created_{tag}", 10 * 10, 10)]),
+]
+
+
+def run_workflows(name_limit: str, base: list, out_dir: str):
+    """generate / transit / create through ``cli.sample`` on the two
+    real-digit ``_best`` checkpoints; every dump checked and every PNG read
+    back and sized."""
+    rows, bad = [], []
+    fd.first_dblock.launches = 0  # the counted run of the workflows
+    for model in ("mcgan", "cgan"):
+        tag = f"0_MNIST_label_{model}_0.5"
+        for wf, extra, dump, images, grids in WORKFLOW_CASES:
+            t0 = time.perf_counter()
+            (out,) = cli_sample.main(wf, base + ["--model_name", model, "--control_name", "0.5"]
+                                     + extra)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            rec = {"model": model, "workflow": wf, "args": extra, "images": images,
+                   "seconds": dt, "images_per_s": images / dt, "png": []}
+            if dump:
+                arr = np.load(os.path.join(out_dir, "npy", f"{dump}_{tag}.npy"))
+                rec["dump"] = list(arr.shape)
+                if (arr.shape != (10_000, 1, 32, 32) or not np.isfinite(arr).all()
+                        or arr.min() < 0 or arr.max() > 255 or not np.array_equal(arr, out)):
+                    bad.append(f"{model} {wf}: dump {arr.shape} [{arr.min()}, {arr.max()}]")
+            for name, n, nrow in grids:
+                path = vis_path({"output_dir": out_dir}, f"{name.format(tag=tag)}.png")
+                png, want = read_png(path), _grid_shape(n, nrow)
+                rec["png"].append({"file": os.path.basename(path), "shape": list(png.shape)})
+                if png.shape != want:
+                    bad.append(f"{path}: {png.shape}, want {want}")
+            rows.append(rec)
+            log("workflows:", json.dumps(rec))
+    launches = {"first_dblock": fd.first_dblock.launches}
+    if launches["first_dblock"]:
+        bad.append(f"first_dblock launched {launches['first_dblock']} times (G only)")
+    log("workflows:", json.dumps({"card": name_limit,
+                                  "first_dblock_launches": launches["first_dblock"]}))
+    if bad:
+        raise SystemExit("workflows failed: " + "; ".join(bad))
+    return launches, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -748,6 +954,8 @@ def main() -> int:
     cifar = check_first_dblock((512, 32, 32, 3, 128), seed=4, timed=True)  # CIFAR's test batch
     train_d = check_first_dblock((256, 32, 32, 3, 128), seed=9, timed=True)  # fused D pass
     train_g = check_first_dblock((128, 32, 32, 3, 128), seed=10, timed=True)  # G update's D pass
+    real_d = check_first_dblock((256, 32, 32, 1, 64), seed=11, timed=True)  # real digits, D pass
+    real_g = check_first_dblock((128, 32, 32, 1, 64), seed=12, timed=True)  # real digits, G update
     check_first_dblock((3, 32, 32, 3, 128), seed=1, timed=False)
     check_first_dblock((2, 30, 70, 1, 64), seed=2, timed=False)  # ragged tiles
     check_first_dblock((1, 128, 128, 3, 64), seed=5, timed=False)  # fewer items than blocks
@@ -762,7 +970,16 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     try:
         trainer_launches, _, profile_trainer = run_trainer(name_limit, work)
-        if args.profile:  # last, so that no timed run follows a profiler session
+        shutil.rmtree(work, ignore_errors=True)
+        cgan_launches, _, profile_cgan = run_cgan(name_limit)
+        real_launches, _, (base, out_dir) = run_real(name_limit, work)
+        wf_launches, _ = run_workflows(name_limit, base, out_dir)
+        # last, so that no timed run follows a profiler session
+        rec = profile_cgan(args.profile or os.path.join(work, "profile"))
+        log("cgan profile:", json.dumps({k: rec[k] for k in (
+            "window_ms", "device_busy_ms", "device_busy_share", "kernel_launches",
+            "category_ms")}))
+        if args.profile:
             log("profile:", json.dumps(profile_pass(g_then_d, args.profile)))
             log("train profile:", json.dumps(profile_train(args.profile)))
             log("trainer profile:", json.dumps(profile_trainer(args.profile)))
@@ -781,10 +998,14 @@ def main() -> int:
         "roofline_share": train_d["roofline_share"],
         "launches_by_path": {"train_cifar10": train_launches["first_dblock"],
                              "serve_128px": serve_launches["first_dblock"],
-                             "trainer_cifar10": trainer_launches["first_dblock"]},
+                             "trainer_cifar10": trainer_launches["first_dblock"],
+                             "cgan": cgan_launches["first_dblock"],
+                             "real_mcgan": real_launches["mcgan"],
+                             "real_cgan": real_launches["cgan"],
+                             "workflows": wf_launches["first_dblock"]},
         "other_shapes": [{k: r[k] for k in ("shape", "ms", "wrapper_ms", "bound_ms", "bound_by",
                                             "plain_ms", "library_ms", "max_abs_err")}
-                         for r in (train_g, full, tail, cifar)],
+                         for r in (train_g, real_d, real_g, full, tail, cifar)],
     }]
     log(name_limit)
     log(json.dumps({"kernels": kernels}))

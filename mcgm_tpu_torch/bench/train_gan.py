@@ -1,16 +1,18 @@
-"""MCGAN / CIFAR10 training throughput on one card: ``bench.py``'s protocol
-run by the port.
+"""MCGAN (or CGAN) / CIFAR10 training throughput on one card: ``bench.py``'s
+protocol run by the port.
 
 The model is the port's CIFAR10 MCGAN at full width and depth (G hidden
 256x4, D hidden 128x4, latent 128, 10 modes, controller rate 0.5,
 ``cifar_style``), with random weights from seed 0, bf16 operands and f32
 parameters; Adam 2e-4 with betas (0.5, 0.999) for G and D; one step is 5 D
-updates and 1 G update with the fused D pass and the hinge loss. The batch is
+updates and 1 G update with the fused D pass and the hinge loss. With
+``--model_name cgan`` it is the CGAN of the same widths (class embeddings
+of 32) with the trainer's CGAN betas (0.0, 0.9). The batch is
 128 uniform images in [-1, 1] with labels ``arange(128) % 10`` (the repo
 holds no dataset). 3 warm-up steps, then 30 timed steps between
 ``torch.cuda.synchronize()`` calls. Usage, on a machine with a card:
 
-    python -m mcgm_tpu_torch.bench.train_gan [--plain]
+    python -m mcgm_tpu_torch.bench.train_gan [--plain] [--model_name cgan]
 
 ``--plain`` routes every hand-written kernel to its plain PyTorch version.
 Prints one JSON line: images/s, the card's name and power limit, and the
@@ -32,15 +34,17 @@ from ..train.optim import make_optimizer
 from ..train.state import GANTrainState, make_gan_train_step
 from ..utils import card_name_and_limit
 
-LR, BETAS, D_ITER = 2e-4, (0.5, 0.999), 5
+LR, D_ITER = 2e-4, 5
+BETAS = {"mcgan": (0.5, 0.999), "cgan": (0.0, 0.9)}  # as train.loop's GAN overrides
 NUM_MODE = 10
 WARMUP, STEPS = 3, 30
 
 
-def bench_config(gan: dict | None = None, batch: int | None = None) -> dict:
-    """The processed config of the CIFAR10 MCGAN; ``gan`` and ``batch``
-    shrink it (tests only)."""
-    cfg = process_control({"data_name": "CIFAR10", "model_name": "mcgan",
+def bench_config(gan: dict | None = None, batch: int | None = None,
+                 model_name: str = "mcgan") -> dict:
+    """The processed config of the CIFAR10 MCGAN or CGAN; ``gan`` and
+    ``batch`` shrink it (tests only)."""
+    cfg = process_control({"data_name": "CIFAR10", "model_name": model_name,
                            "control": {"controller_rate": "0.5"},
                            "derive_model_params": gan is None})
     if gan is not None:
@@ -58,8 +62,9 @@ def bench_state(cfg: dict, device=None, plain: bool = False):
     model = build_model(cfg, device).use_plain_kernels(plain)
     dev = model.generator.Dense_0.weight.device
     opt = {"optimizer_name": "Adam", "lr": LR, "weight_decay": 0}
-    ts = GANTrainState(model, make_optimizer(model.generator.parameters(), opt, LR, BETAS),
-                       make_optimizer(model.discriminator.parameters(), opt, LR, BETAS),
+    betas = BETAS[cfg["model_name"]]
+    ts = GANTrainState(model, make_optimizer(model.generator.parameters(), opt, LR, betas),
+                       make_optimizer(model.discriminator.parameters(), opt, LR, betas),
                        torch.Generator(dev).manual_seed(1))
     B = cfg["batch_size"]["train"]
     g = torch.Generator(dev).manual_seed(0)
@@ -95,11 +100,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--plain", action="store_true",
                     help="route the hand-written kernels to their plain versions")
+    ap.add_argument("--model_name", default="mcgan", choices=sorted(BETAS))
     args = ap.parse_args(argv)
-    ts, batch = bench_state(bench_config(), plain=args.plain)  # raises without a card
+    ts, batch = bench_state(bench_config(model_name=args.model_name),
+                            plain=args.plain)  # raises without a card
     res = time_steps(ts, batch, make_gan_train_step(D_ITER), STEPS, WARMUP)
     name, limit = card_name_and_limit().rsplit(",", 1)
-    print(json.dumps({"metric": "mcgan_cifar10_train_images_per_sec",
+    print(json.dumps({"metric": f"{args.model_name}_cifar10_train_images_per_sec",
                       "value": res["images_per_sec"], "unit": "images/sec", "device": name.strip(),
                       "power_limit_w": float(limit.split()[0]),
                       "first_dblock_launches_per_step": res["first_dblock_launches_per_step"],

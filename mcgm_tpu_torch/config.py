@@ -3,7 +3,7 @@ the per-dataset shapes and derived hyperparameters.
 
 Port of ``mcgm_tpu/config.py`` (``load_config``, ``apply_control_name``,
 ``make_model_tag``, ``_DATA_SHAPES`` and ``process_control`` for the GAN
-family). Shapes are NHWC ``(H, W, C)`` as in the JAX package. The defaults
+family and the classifier). Shapes are NHWC ``(H, W, C)`` as in the JAX package. The defaults
 are the port's own ``config.yml``: the JAX package's keys less those of its
 TPU machinery (meshes, seed-parallel sweeps, dispatch groups, compile cache),
 with ``device: cuda``.
@@ -72,6 +72,7 @@ _DATA_SHAPES = {
 }
 
 _GAN_FAMILY = ("cgan", "mcgan")
+_PORTED = _GAN_FAMILY + ("classifier",)
 
 
 def _batch_size(cfg: dict, res: int) -> None:
@@ -86,8 +87,8 @@ def process_control(cfg: dict) -> dict:
 
     ``Synthetic{K}`` / ``SyntheticGray{K}`` take the shape of their base and
     the per-mode protocol of a dataset with that many modes. Only the GAN
-    family's hyperparameters are ported; other models raise until their
-    slice lands (ROADMAP Queue A). With ``derive_model_params=False`` a
+    family's and the classifier's hyperparameters are ported; other models
+    raise until their slice lands (ROADMAP Queue A). With ``derive_model_params=False`` a
     caller-supplied ``gan`` dict is kept, as the tests do for tiny models.
     """
     cfg = copy.deepcopy(cfg)
@@ -111,27 +112,28 @@ def process_control(cfg: dict) -> dict:
         _batch_size(cfg, res)
         return cfg
     name = cfg["model_name"]
-    if name not in _GAN_FAMILY:
+    if name not in _PORTED:
         raise NotImplementedError(
             f"model {name!r} is not ported yet (ROADMAP Queue A)")
     if cfg.get("ae_name") == "vqvae":
         cfg["vqvae"] = {"hidden_size": [128, 128] if res == 32 else [128, 128, 128, 128],
                         "num_res_block": 2, "embedding_size": 64, "num_embedding": 512,
                         "vq_commit": 0.25}
-    if res == 32:
-        if data_name in ("CIFAR10",):
-            g_hidden, d_hidden = [256] * 4, [128] * 4
+    if name in _GAN_FAMILY:
+        if res == 32:
+            if data_name in ("CIFAR10",):
+                g_hidden, d_hidden = [256] * 4, [128] * 4
+            else:
+                g_hidden, d_hidden = [512, 256, 128, 64], [64, 128, 256, 512]
         else:
-            g_hidden, d_hidden = [512, 256, 128, 64], [64, 128, 256, 512]
-    else:
-        g_hidden = [1024, 512, 256, 128, 64]
-        d_hidden = [64, 128, 256, 512, 1024]
-    cfg["gan"] = {
-        "latent_size": 128,
-        "generator_hidden_size": g_hidden,
-        "discriminator_hidden_size": d_hidden,
-        "embedding_size": 32,
-    }
+            g_hidden = [1024, 512, 256, 128, 64]
+            d_hidden = [64, 128, 256, 512, 1024]
+        cfg["gan"] = {
+            "latent_size": 128,
+            "generator_hidden_size": g_hidden,
+            "discriminator_hidden_size": d_hidden,
+            "embedding_size": 32,
+        }
     cfg["classifier"] = {"hidden_size": [8, 16, 32, 64]}
     _batch_size(cfg, res)
     return cfg

@@ -6,8 +6,8 @@ of numpy arrays, as ``mcgm_tpu`` checkpoints hold them under
 ``model_dict``. The port's modules carry the flax module names, so a
 variable's path maps to a key by rule:
 
-- a path component naming a residual block (``_MC...ResBlock_i``) sits
-  under the owning ``blocks`` dict; BatchNorm's inner ``bn`` scope is dropped;
+- a path component naming a residual block (``_MC...ResBlock_i``,
+  ``_C...ResBlock_i``) sits under the owning ``blocks`` dict; BatchNorm's inner ``bn`` scope is dropped;
 - ``kernel`` -> ``weight``, HWIO -> OIHW for convs and ``[in,out]`` ->
   ``[out,in]`` for dense layers; BatchNorm ``scale`` -> ``weight``,
   ``mean``/``var`` -> ``running_mean``/``running_var``; spectral ``u`` and
@@ -53,7 +53,7 @@ def _key(parts, name: str) -> str:
     for p in parts:
         if p == "bn":
             continue
-        if p.startswith("_MC") and "ResBlock_" in p:
+        if p.startswith("_") and "ResBlock_" in p:
             out.append("blocks")
         out.append(p)
     return ".".join(out + [name])
@@ -96,30 +96,38 @@ def _put(tree: dict, path, value) -> None:
     tree[path[-1]] = value
 
 
-def to_jax_gan_variables(module: nn.Module) -> dict:
-    """The flax variables (nested dicts of f32 numpy arrays, collections
-    ``params`` / ``batch_stats`` / ``spectral`` / ``codebook``) of an MCGAN,
-    or any model built from this package's layers: the JAX package's layout,
-    as its checkpoints hold it under ``model_dict``. The inverse of
-    :func:`from_jax_variables`: loading the result back gives the same
-    model exactly."""
-    out: dict = {}
+def jax_leaves(module: nn.Module):
+    """``(state_dict key, JAX path, tensor)`` for each parameter and buffer
+    of a model built from this package's layers; the path is the variable's
+    place in the flax tree, ``(collection, *modules, leaf)``."""
     for name, mod in module.named_modules():
-        path = [p for p in name.split(".") if p and p != "blocks"]
-        if isinstance(mod, layers.BatchNorm):
-            path.append("bn")
+        path = tuple(p for p in name.split(".") if p and p != "blocks")
+        bn = isinstance(mod, layers.BatchNorm)
         for leaf, t in list(mod.named_parameters(recurse=False)) + list(
                 mod.named_buffers(recurse=False)):
-            if isinstance(mod, layers.BatchNorm):
+            if bn:
                 coll, key = {"weight": ("params", "scale"), "bias": ("params", "bias"),
                              "running_mean": ("batch_stats", "mean"),
                              "running_var": ("batch_stats", "var")}[leaf]
             else:
                 coll, key = {"weight": ("params", "kernel"), "bias": ("params", "bias"),
                              "u": ("spectral", "u"), "codebook": ("codebook", "codebook")}[leaf]
-            value = (_kernel_to_jax(t) if key == "kernel"
-                     else t.detach().cpu().numpy().astype(np.float32))
-            _put(out.setdefault(coll, {}), path + [key], value)
+            yield (f"{name}.{leaf}" if name else leaf,
+                   (coll, *path, *(("bn",) if bn else ()), key), t)
+
+
+def to_jax_gan_variables(module: nn.Module) -> dict:
+    """The flax variables (nested dicts of f32 numpy arrays, collections
+    ``params`` / ``batch_stats`` / ``spectral`` / ``codebook``) of an MCGAN
+    or CGAN, or any model built from this package's layers: the JAX
+    package's layout, as its checkpoints hold it under ``model_dict``. The
+    inverse of :func:`from_jax_variables`: loading the result back gives the
+    same model exactly."""
+    out: dict = {}
+    for _, path, t in jax_leaves(module):
+        value = (_kernel_to_jax(t) if path[-1] == "kernel"
+                 else t.detach().cpu().numpy().astype(np.float32))
+        _put(out, path, value)
     return out
 
 
@@ -127,6 +135,12 @@ def from_jax_classifier(variables) -> dict[str, torch.Tensor]:
     """The ``state_dict`` of ``models.classifier.Classifier`` for the JAX
     ``Classifier``'s variables (the same layers and names as the GAN's)."""
     return from_jax_variables(variables)
+
+
+def to_jax_classifier(module: nn.Module) -> dict:
+    """The JAX ``Classifier``'s variables (``params``, ``batch_stats``) of
+    the port's classifier: what its checkpoints hold under ``model_dict``."""
+    return to_jax_gan_variables(module)
 
 
 _INCEPTION_LEAF = {("params", "kernel"): "weight", ("params", "scale"): "weight",

@@ -1,5 +1,6 @@
 """Small CNN classifier: the IS / FID feature model for COIL100 and
-Omniglot. Port of ``mcgm_tpu/models/classifier.py``.
+Omniglot, and of any dataset whose classifier was trained by the port
+(``train.loop.Experiment``). Port of ``mcgm_tpu/models/classifier.py``.
 
 Four conv3x3 -> BatchNorm -> ReLU stages (hidden ``[8, 16, 32, 64]`` by
 default), a 2x2 max-pool after each but the last, then a linear head. The
@@ -15,7 +16,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..evals.metrics import weighted_mean
 from ..ops.layers import BatchNorm, Conv, Dense
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, w=None) -> torch.Tensor:
+    """Mean negative log-likelihood of ``labels`` in f32; a 0/1 mask ``w``
+    leaves rows out."""
+    logp = torch.log_softmax(logits.float(), -1)
+    return weighted_mean(-logp.gather(1, labels.long()[:, None]), w)
 
 
 class Classifier(nn.Module):
@@ -32,13 +41,25 @@ class Classifier(nn.Module):
         self.n_stage = len(hs)
         self.classifier = Dense(hs[-1] * side * side, classes_size, generator=g)
 
-    def forward(self, img: torch.Tensor, train: bool = False, feature_only: bool = False):
+    def forward(self, img, train: bool = False, feature_only: bool = False):
         """``img``: NHWC in [-1, 1]. Returns the logits ``[B, classes]``, or
-        with ``feature_only`` the flattened features."""
-        x = img.permute(0, 3, 1, 2)
+        with ``feature_only`` the flattened features. Given a batch dict
+        (``img``, and ``label`` / ``w`` if present), returns the train
+        step's output dict, ``{"label": logits, "loss": cross-entropy}``,
+        as the JAX model does."""
+        batch = img if isinstance(img, dict) else None
+        x = (batch["img"] if batch is not None else img).permute(0, 3, 1, 2)
         for i in range(self.n_stage):
             x = getattr(self, f"BatchNorm_{i}")(getattr(self, f"Conv_{i}")(x), train).relu()
             if i < self.n_stage - 1:
                 x = F.max_pool2d(x, 2, 2)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
-        return x if feature_only else self.classifier(x)
+        if feature_only:
+            return x
+        logits = self.classifier(x)
+        if batch is None:
+            return logits
+        out = {"label": logits}
+        if "label" in batch:
+            out["loss"] = cross_entropy(logits, batch["label"], batch.get("w"))
+        return out

@@ -1,6 +1,5 @@
-"""MCGAN: SNGAN-style generator and discriminator gated by
-MultimodalControllers. Port of ``mcgm_tpu/models/gan.py`` (CGAN is a later
-slice).
+"""SNGAN-style conditional GANs: MCGAN (MultimodalController gating) and
+CGAN (class embeddings). Port of ``mcgm_tpu/models/gan.py``.
 
 Submodules carry the flax module names of the JAX package (``Conv_0``,
 ``BatchNorm_1``, ``mc_1``, ``SNConv_2`` ...), so a reader finds the
@@ -96,6 +95,61 @@ class MCGenerator(nn.Module):
         return torch.tanh(self.Conv_0(x))
 
 
+class _CGenResBlock(nn.Module):
+    """Stride-2 generator block of the CGAN: the MCGAN block without gates.
+    The same biases are dead (``Conv_0``; ``Conv_1`` / ``Conv_2`` of the last
+    block) and are dropped as the JAX package drops them. Without gates the
+    inner blocks' ``Conv_1`` / ``Conv_2`` biases are dead too (a per-channel
+    constant reaches the head BatchNorm through linear shortcuts only); the
+    JAX package keeps them, and so does the port, so the trees agree."""
+
+    def __init__(self, input_size: int, output_size: int, generator: torch.Generator,
+                 tail_bias_free: bool = False):
+        super().__init__()
+        g = generator
+        self.BatchNorm_0 = BatchNorm(input_size, g)
+        self.Conv_0 = UpsampledConv(input_size, output_size, bias=False, generator=g)
+        self.BatchNorm_1 = BatchNorm(output_size, g)
+        self.Conv_1 = Conv(output_size, output_size, 3, 1, 1, bias=not tail_bias_free,
+                           generator=g)
+        self.Conv_2 = Conv(input_size, output_size, 1, 1, 0, bias=not tail_bias_free,
+                           generator=g)
+
+    def forward(self, x, train: bool):
+        h = self.Conv_0(self.BatchNorm_0(x, train).relu())
+        h = self.Conv_1(self.BatchNorm_1(h, train).relu())
+        return add_upsampled_nearest(h, self.Conv_2(x), 2)
+
+
+class CGenerator(nn.Module):
+    """A bias-free class embedding of the indicator, concatenated to z."""
+
+    def __init__(self, data_shape, latent_size: int, hidden_size, num_mode: int,
+                 embedding_size: int, generator: torch.Generator):
+        super().__init__()
+        hs = tuple(hidden_size)
+        g = generator
+        self.hidden_size = hs
+        self.start = data_shape[0] >> (len(hs) - 1)  # as MCGenerator
+        self.embedding = Dense(num_mode, embedding_size, bias=False, generator=g)
+        self.Dense_0 = Dense(latent_size + embedding_size, hs[0] * self.start * self.start,
+                             generator=g)
+        self.blocks = nn.ModuleDict({
+            f"_CGenResBlock_{i}": _CGenResBlock(hs[i], hs[i + 1], g,
+                                                tail_bias_free=(i == len(hs) - 2))
+            for i in range(len(hs) - 1)})
+        self.BatchNorm_0 = BatchNorm(hs[-1], g)
+        self.Conv_0 = ConvS2D(hs[-1], data_shape[-1], generator=g)
+
+    def forward(self, z, indicator, train: bool = False):
+        x = self.Dense_0(torch.cat([z, self.embedding(indicator.to(z.dtype))], -1))
+        x = x.reshape(x.shape[0], self.start, self.start, self.hidden_size[0])
+        x = x.permute(0, 3, 1, 2)
+        for block in self.blocks.values():
+            x = block(x, train)
+        return torch.tanh(self.Conv_0(self.BatchNorm_0(x, train).relu()))
+
+
 class _MCFirstDisResBlock(nn.Module):
     """conv3x3 -> ReLU -> MC gate -> conv3x3 + avgpool, plus the pooled 1x1
     shortcut: one call of the fused kernel. The prologue here (SN of the
@@ -184,12 +238,119 @@ class MCDiscriminator(nn.Module):
         return self.SNDense_0(global_sum_pool(x), train)
 
 
-class MCGAN(nn.Module):
-    """Generator and discriminator of one MCGAN.
+class _CFirstDisResBlock(nn.Module):
+    """conv3x3 -> ReLU -> conv3x3 + avgpool, plus the pooled 1x1 shortcut,
+    on the image and its tiled embedding (``C_in`` = image channels +
+    ``embedding_size``). It runs as plain convolutions: the hand-written
+    first D-block kernel takes 1 or 3 input channels and has the MC gate."""
 
-    ``compute_dtype`` is the activation dtype (bf16 operands with f32
-    parameters on the card by default); outputs are returned as f32.
-    """
+    def __init__(self, input_size: int, output_size: int, generator: torch.Generator):
+        super().__init__()
+        g = generator
+        self.SNConv_0 = SNConv(input_size, output_size, 3, 1, 1, generator=g)
+        self.SNConv_1 = SNConvPool(output_size, output_size, generator=g)
+        self.SNConv_2 = SNConv(input_size, output_size, 1, 1, 0, generator=g)
+
+    def forward(self, x, train: bool):
+        h = self.SNConv_1(self.SNConv_0(x, train).relu(), train)
+        return h + self.SNConv_2(avg_pool(x, 2), train)
+
+
+class _CDisResBlock(nn.Module):
+    """The MCGAN discriminator block without gates."""
+
+    def __init__(self, input_size: int, output_size: int, stride: int,
+                 generator: torch.Generator):
+        super().__init__()
+        g = generator
+        self.stride = stride
+        self.SNConv_0 = SNConv(input_size, output_size, 3, 1, 1, generator=g)
+        if stride > 1:
+            self.SNConv_1 = SNConvPool(output_size, output_size, generator=g)
+        else:
+            self.SNConv_1 = SNConv(output_size, output_size, 3, 1, 1, generator=g)
+        if stride > 1 or input_size != output_size:
+            self.SNConv_2 = SNConv(input_size, output_size, 1, 1, 0, generator=g)
+
+    def forward(self, x, train: bool):
+        h = self.SNConv_1(self.SNConv_0(x.relu(), train).relu(), train)
+        if self.stride > 1:
+            sc = self.SNConv_2(avg_pool(x, 2), train)
+        elif hasattr(self, "SNConv_2"):
+            sc = self.SNConv_2(x, train)
+        else:
+            sc = x
+        return h + sc
+
+
+class CDiscriminator(nn.Module):
+    """The class embedding (a bias-free ``SNDense`` of the indicator, whose
+    ``u`` moves only in train mode) is tiled over H x W and concatenated
+    after the image channels; no controller follows the last ReLU."""
+
+    def __init__(self, data_shape, hidden_size, num_mode: int, embedding_size: int,
+                 cifar_style: bool, generator: torch.Generator):
+        super().__init__()
+        hs = tuple(hidden_size)
+        g = generator
+        n_tail = 2 if cifar_style else 1
+        self.embedding = SNDense(num_mode, embedding_size, bias=False, generator=g)
+        blocks = {"_CFirstDisResBlock_0": _CFirstDisResBlock(
+            data_shape[-1] + embedding_size, hs[0], g)}
+        for i in range(len(hs) - 1):
+            stride = 2 if i < len(hs) - 1 - n_tail else 1
+            blocks[f"_CDisResBlock_{i}"] = _CDisResBlock(hs[i], hs[i + 1], stride, g)
+        self.blocks = nn.ModuleDict(blocks)
+        self.SNDense_0 = SNDense(hs[-1], 1, generator=g)
+
+    def forward(self, x, indicator, train: bool = False):
+        emb = self.embedding(indicator.to(x.dtype), train)
+        B, _, H, W = x.shape
+        x = torch.cat([x, emb[:, :, None, None].expand(B, -1, H, W)], 1)
+        x = x.contiguous(memory_format=torch.channels_last)
+        for block in self.blocks.values():
+            x = block(x, train)
+        return self.SNDense_0(global_sum_pool(x.relu()), train)
+
+
+class _GANBase(nn.Module):
+    """The contract MCGAN and CGAN share, which the train step, the sampler
+    and the workflows rely on: ``generator`` and ``discriminator``
+    submodules, ``latent_size``, ``num_mode``, ``compute_dtype`` (the
+    activation dtype: bf16 operands with f32 parameters on the card by
+    default), and ``generate`` / ``discriminate`` on NHWC images with f32
+    outputs."""
+
+    def use_plain_kernels(self, plain: bool = True) -> "_GANBase":
+        """Route every hand-written kernel's call to its plain PyTorch
+        version, which also runs f32 on the card: the reference that a run
+        through the kernels is checked against. (CGAN calls none.)"""
+        for m in self.modules():
+            if isinstance(m, _MCFirstDisResBlock):
+                m.plain = plain
+        return self
+
+    def _indicator(self, C):
+        # f32 like the JAX package's one_hot; each consumer casts it
+        return one_hot(C, self.num_mode).to(self.generator.Dense_0.weight.device)
+
+    def generate(self, C: torch.Tensor, z: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """Images ``[B,H,W,C]`` in [-1, 1] for modes ``C`` and latents ``z``."""
+        x = self.generator(z.to(self.compute_dtype), self._indicator(C), train)
+        return x.permute(0, 2, 3, 1).float()
+
+    def discriminate(self, x: torch.Tensor, C: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """Logits ``[B, 1]`` for NHWC images ``x``."""
+        x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
+        return self.discriminator(x, self._indicator(C), train).float()
+
+    def forward(self, C: torch.Tensor, z: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """The G -> D chain."""
+        return self.discriminate(self.generate(C, z, train), C, train)
+
+
+class MCGAN(_GANBase):
+    """Generator and discriminator of one MCGAN."""
 
     def __init__(self, data_shape=(32, 32, 3), latent_size: int = 128,
                  generator_hidden_size=(256, 256, 256, 256),
@@ -207,29 +368,23 @@ class MCGAN(nn.Module):
         self.discriminator = MCDiscriminator(self.data_shape, discriminator_hidden_size,
                                              num_mode, controller_rate, cifar_style, seeds)
 
-    def use_plain_kernels(self, plain: bool = True) -> "MCGAN":
-        """Route every hand-written kernel's call to its plain PyTorch
-        version, which also runs f32 on the card: the reference that a run
-        through the kernels is checked against."""
-        for m in self.modules():
-            if isinstance(m, _MCFirstDisResBlock):
-                m.plain = plain
-        return self
 
-    def _indicator(self, C):
-        # f32 like the JAX package's one_hot; mc_gate casts the code to x's dtype
-        return one_hot(C, self.num_mode).to(self.generator.Dense_0.weight.device)
+class CGAN(_GANBase):
+    """Generator and discriminator of one CGAN (class embeddings of
+    ``embedding_size``)."""
 
-    def generate(self, C: torch.Tensor, z: torch.Tensor, train: bool = False) -> torch.Tensor:
-        """Images ``[B,H,W,C]`` in [-1, 1] for modes ``C`` and latents ``z``."""
-        x = self.generator(z.to(self.compute_dtype), self._indicator(C), train)
-        return x.permute(0, 2, 3, 1).float()
-
-    def discriminate(self, x: torch.Tensor, C: torch.Tensor, train: bool = False) -> torch.Tensor:
-        """Logits ``[B, 1]`` for NHWC images ``x``."""
-        x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
-        return self.discriminator(x, self._indicator(C), train).float()
-
-    def forward(self, C: torch.Tensor, z: torch.Tensor, train: bool = False) -> torch.Tensor:
-        """The G -> D chain."""
-        return self.discriminate(self.generate(C, z, train), C, train)
+    def __init__(self, data_shape=(32, 32, 3), latent_size: int = 128,
+                 generator_hidden_size=(256, 256, 256, 256),
+                 discriminator_hidden_size=(128, 128, 128, 128), num_mode: int = 10,
+                 embedding_size: int = 32, cifar_style: bool = False,
+                 compute_dtype: torch.dtype = torch.float32, seed: int = 0):
+        super().__init__()
+        self.data_shape = tuple(data_shape)
+        self.latent_size = latent_size
+        self.num_mode = num_mode
+        self.compute_dtype = compute_dtype
+        g = torch.Generator().manual_seed(seed)
+        self.generator = CGenerator(self.data_shape, latent_size, generator_hidden_size,
+                                    num_mode, embedding_size, g)
+        self.discriminator = CDiscriminator(self.data_shape, discriminator_hidden_size,
+                                            num_mode, embedding_size, cifar_style, g)

@@ -1,5 +1,12 @@
-"""The GAN train step. Port of ``mcgm_tpu/train/state.py::GANTrainState``
-and ``make_gan_train_step``.
+"""The train steps. Port of ``mcgm_tpu/train/state.py``: the generic
+single-model ``make_train_step`` and ``make_eval_step``, and
+``GANTrainState`` with ``make_gan_train_step``, which takes an MCGAN or a
+CGAN.
+
+The single-model step runs the model in train mode on the batch, takes
+``output["loss"]``'s gradient and lets the optimizer (which clips) update
+the parameters; BatchNorm statistics move in the forward, as the JAX step's
+mutated collections do.
 
 One step is ``d_iter`` discriminator updates on the same batch, each with a
 fresh z, then one generator update with its own z (the reference's 5:1
@@ -41,6 +48,63 @@ from torch import nn
 LOSS_TYPES = ("Hinge", "BCE")
 
 
+@dataclass
+class TrainState:
+    """A single model, its optimizer and the count of steps taken."""
+
+    model: nn.Module
+    opt: torch.optim.Optimizer
+    step: int = 0
+
+
+def make_train_step(skip_nonfinite: bool = False):
+    """``step(ts, batch) -> {"loss", "output"[, "skipped"]}``: one update of
+    ``ts.model`` on ``batch``, in place, whose ``model(batch, train=True)``
+    returns a dict with ``loss``.
+
+    ``skip_nonfinite``: when the gradients' global norm is not finite the
+    whole update is dropped (parameters, optimizer state, the buffers the
+    forward moved) and the result has ``skipped`` = 1.0 (else 0.0); the step
+    count still advances. Deciding it reads the norm on the host, one wait
+    for the device per step; without the option the step never waits."""
+
+    def step(ts: TrainState, batch: dict) -> dict:
+        model = ts.model
+        saved = ([b.clone() for b in model.buffers()] if skip_nonfinite else None)
+        out = model(batch, train=True)
+        ts.opt.zero_grad(set_to_none=True)
+        out["loss"].backward()
+        aux = {"loss": out["loss"].detach(), "output": out}
+        ok = True
+        if skip_nonfinite:
+            grads = [p.grad for p in model.parameters() if p.grad is not None]
+            norm = torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g) for g in grads]))
+            ok = bool(torch.isfinite(norm))
+            aux["skipped"] = torch.tensor(0.0 if ok else 1.0, device=norm.device)
+            if not ok:
+                with torch.no_grad():
+                    for b, old in zip(model.buffers(), saved):
+                        b.copy_(old)
+        if ok:
+            ts.opt.step()
+        ts.step += 1
+        return aux
+
+    return step
+
+
+def make_eval_step():
+    """``step(model, batch) -> output``: the forward in eval mode (running
+    statistics), without gradients."""
+
+    @torch.no_grad()
+    def step(model: nn.Module, batch: dict) -> dict:
+        return model(batch, train=False)
+
+    return step
+
+
 def d_loss(d_real: torch.Tensor, d_fake: torch.Tensor, loss_type: str = "Hinge") -> torch.Tensor:
     """Discriminator loss in f32: hinge ``relu(1 - D(x)) + relu(1 + D(G(z)))``,
     or BCE with logits (real 1, fake 0), averaged over the batch."""
@@ -62,7 +126,7 @@ def g_loss(d_fake: torch.Tensor, loss_type: str = "Hinge") -> torch.Tensor:
 
 @dataclass
 class GANTrainState:
-    """The MCGAN (G and D), their optimizers, the generator of z on the
+    """The GAN (G and D), their optimizers, the generator of z on the
     model's device, and the count of steps taken."""
 
     model: nn.Module

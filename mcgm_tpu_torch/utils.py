@@ -45,6 +45,14 @@ def npy_path(cfg: dict, name: str) -> str:
     return os.path.join(cfg["output_dir"], "npy", f"{name}.npy")
 
 
+def result_path(cfg: dict, name: str, ext: str = "npy") -> str:
+    return os.path.join(cfg["output_dir"], "result", f"{name}.{ext}")
+
+
+def vis_path(cfg: dict, *parts: str) -> str:
+    return os.path.join(cfg["output_dir"], "vis", *parts)
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` means the card. Without one that raises: the port never
     carries on silently on the CPU; pass ``device="cpu"`` to ask for it."""

@@ -1,11 +1,13 @@
-"""Sampling backend of the generate workflow, GAN family.
+"""Sampling backend of the generate / transit / create workflows, GAN
+family. Port of ``mcgm_tpu/workflows/sampling.py``.
 
-Port of ``mcgm_tpu/workflows/sampling.py``. Noise comes from an explicit
-``torch.Generator``; JAX and torch streams differ, so parity tests pass z in
-through ``sample_with_z``.
+Noise comes from an explicit ``torch.Generator``; JAX and torch streams
+differ, so parity tests hand both packages the same z.
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -24,6 +26,27 @@ class Sampler:
     @property
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
+
+    def with_state(self, state: dict, classes_size: int | None = None) -> "Sampler":
+        """A sampler over a copy of the model holding ``state`` (a
+        ``state_dict``, as ``models.manipulate`` returns): the counterpart of
+        the JAX package's ``with_variables``. With another ``classes_size``
+        the model is rebuilt with that many modes and holds the generator
+        only: created modes are generated, never discriminated (and the
+        reference's torch stream leaves CGAN's D embedding at the trained
+        mode count)."""
+        cfg = self.cfg
+        if classes_size is None or classes_size == cfg["classes_size"]:
+            model = copy.deepcopy(self.model)
+            model.load_state_dict(state)
+            return Sampler(cfg, model)
+        cfg = dict(cfg, classes_size=classes_size)
+        model = build_model(cfg, self.device)
+        model.compute_dtype = self.model.compute_dtype
+        del model.discriminator
+        model.generator.load_state_dict(
+            {k[len("generator."):]: t for k, t in state.items() if k.startswith("generator.")})
+        return Sampler(cfg, model)
 
     def sample_z(self, n: int, generator: torch.Generator) -> torch.Tensor:
         z = torch.randn((n, self.model.latent_size), generator=generator,
@@ -54,10 +77,15 @@ class Sampler:
         return torch.cat(out)
 
 
-def load_sampler(cfg: dict, tag: str, variables=None, device=None) -> Sampler:
+def load_sampler(cfg: dict, tag: str, classes_size: int | None = None, variables=None,
+                 device=None) -> Sampler:
     """A Sampler on ``device`` (the card by default) with the weights of
     ``variables`` (flax variables as nested numpy dicts) or, by default, of
-    the JAX package's ``{tag}_best`` checkpoint."""
+    the ``{tag}_best`` checkpoint either package wrote; ``classes_size``
+    overrides the config's."""
+    cfg = dict(cfg)
+    if classes_size is not None:
+        cfg["classes_size"] = classes_size
     model = build_model(cfg, device)
     if variables is None:
         variables = load_model_dict(ckpt_path(cfg, tag, "best"))

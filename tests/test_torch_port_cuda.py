@@ -74,6 +74,8 @@ def _args(dev, B, H, W, cin, cout, seed=0):
     (512, 32, 32, 3, 128),  # CIFAR's test batch
     (256, 32, 32, 3, 128),  # the train step's fused D pass (real and fake)
     (128, 32, 32, 3, 128),  # the train step's G update
+    (256, 32, 32, 1, 64),   # the real-digit (MNIST) MCGAN's fused D pass
+    (128, 32, 32, 1, 64),   # and its G update
 ])
 def test_first_dblock_matches_plain(dev, shape):
     B, H, W, cin, cout = shape
@@ -171,6 +173,30 @@ def test_train_step_kernel_path_matches_plain(dev):
         assert abs(got[k].item() - want[k].item()) <= TRAIN_TOL * scale, k
     for n, w in seen_p[0].items():
         err = (seen_k[0][n].float() - w.float()).abs().max().item()
+        assert err <= TRAIN_TOL * w.float().abs().max().item(), (n, err)
+
+
+def test_cgan_train_step_matches_f32(dev):
+    """A small CIFAR10 CGAN step in bf16 on the card against the same step
+    in f32 (its first block, 3 + 8 channels, runs plain cuDNN: no kernel
+    launch), within the step tolerance."""
+    cfg = train_gan.bench_config(gan=SMALL_GAN, batch=8, model_name="cgan")
+    (ts_b, batch), (ts_f, _) = (train_gan.bench_state(cfg, dev),
+                                train_gan.bench_state(dict(cfg, compute_dtype="float32"), dev))
+    assert ts_b.model.compute_dtype == torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(4)
+    z = [torch.randn((8, SMALL_GAN["latent_size"]), generator=g, device=dev)
+         for _ in range(D_ITER + 1)]
+    seen_b, seen_f = _d_grads(ts_b), _d_grads(ts_f)
+    step = make_gan_train_step(D_ITER)
+    before = fd.first_dblock.launches
+    got, want = step(ts_b, batch, z=z), step(ts_f, batch, z=z)
+    assert fd.first_dblock.launches == before
+    scale = max(abs(w.item()) for w in want.values())
+    for k in want:
+        assert abs(got[k].item() - want[k].item()) <= TRAIN_TOL * scale, k
+    for n, w in seen_f[0].items():
+        err = (seen_b[0][n].float() - w.float()).abs().max().item()
         assert err <= TRAIN_TOL * w.float().abs().max().item(), (n, err)
 
 

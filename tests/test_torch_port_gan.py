@@ -26,6 +26,7 @@ from mcgm_tpu.models.gan import MCGAN as JaxMCGAN
 from mcgm_tpu.report.logger import Logger
 from mcgm_tpu_torch.config import process_control
 from mcgm_tpu_torch.io.checkpoint import load_model_dict
+from mcgm_tpu_torch.io.images import read_png
 from mcgm_tpu_torch.io.jax_import import from_jax_variables
 from mcgm_tpu_torch.kernels import first_dblock as fd
 from mcgm_tpu_torch.models import build_model
@@ -251,8 +252,12 @@ def test_generate_workflow_save_npy(case, tmp_path):
     path = tmp_path / "npy" / "generated_0_tiny.npy"
     np.testing.assert_array_equal(np.load(path), out)
     assert out.shape == (2 * K, 3, 32, 32) and out.min() >= 0 and out.max() <= 255
-    with pytest.raises(NotImplementedError, match="io/images"):
-        generate(Sampler(dict(cfg, save_img=True), sampler.model), "0_tiny")
+    # with save_img, the sweep's first save_per_mode rounds as a grid too
+    again = generate(Sampler(dict(cfg, save_img=True, save_per_mode=2, save_format="png"),
+                             sampler.model), "0_tiny")
+    np.testing.assert_array_equal(again, out)
+    grid = read_png(str(tmp_path / "vis" / "generated_0_tiny.png"))
+    assert grid.shape == (2 * 34 + 2, K * 34 + 2, 3)
 
 
 # ------------------------------------------------------------- checkpoint

@@ -18,6 +18,14 @@ Tolerances, and why:
   first gradient exceeds ``1e-4 * max|grad|`` of its tensor within
   ``lr / 100`` of JAX's;
 - BatchNorm statistics, spectral ``u`` and codebooks: ``rtol=1e-4, atol=1e-5``.
+
+A tiny CGAN (G hidden 16, 8, 8; D 8, 8, 16, 16; embedding 8) takes the same
+step against the same JAX function with the trainer's CGAN betas (0.0, 0.9),
+under the same tolerances. Without MC gates, the biases of G's inner
+``Conv_1`` / ``Conv_2`` are dead as well (see the test): their gradients are
+rounding noise in both packages, so for them both must be below ``1e-4`` of
+the largest gradient of G. A CGAN checkpoint of the port's trainer is read by
+the JAX package's ``load_checkpoint``, with the JAX CGAN's variable tree.
 """
 
 from concurrent.futures import ThreadPoolExecutor
@@ -30,13 +38,20 @@ import jax
 import jax.numpy as jnp
 import optax
 
+from mcgm_tpu.io.checkpoint import load_checkpoint as jax_load_checkpoint
+from mcgm_tpu.models import build_model as jax_build_model
+from mcgm_tpu.models.gan import CGAN as JaxCGAN
 from mcgm_tpu.models.gan import MCGAN as JaxMCGAN
 from mcgm_tpu.train import optim as jopt
 from mcgm_tpu.train import state as jstate
+from mcgm_tpu_torch import config as pconfig
 from mcgm_tpu_torch.bench import train_gan as bench
-from mcgm_tpu_torch.io.jax_import import from_jax_gan_train_state, from_jax_variables
+from mcgm_tpu_torch.io.jax_import import (from_jax_gan_train_state, from_jax_variables,
+                                          to_jax_gan_variables)
 from mcgm_tpu_torch.kernels import first_dblock as fd
-from mcgm_tpu_torch.models.gan import MCGAN
+from mcgm_tpu_torch.models import build_model
+from mcgm_tpu_torch.models.gan import CGAN, MCGAN
+from mcgm_tpu_torch.train import loop as ploop
 from mcgm_tpu_torch.train import optim as popt
 from mcgm_tpu_torch.train import state as pstate
 from test_torch_port_gan import _fill
@@ -109,13 +124,14 @@ def _tree_keys(collection, tree):
     return from_jax_variables({"params": {collection: tree}})
 
 
-def _jax_step(variables, img, label):
-    """The JAX step, compiled once at a low backend optimisation level (the
-    compile, not the run, is what costs here), from a fresh optimizer state;
-    returns the new state, the metrics and the z it drew."""
-    jm = JaxMCGAN(**ARCH)
-    g_opt = _recording(jopt.make_optimizer(ADAM, LR, BETAS))
-    d_opt = _recording(jopt.make_optimizer(ADAM, LR, BETAS))
+def _jax_step(variables, img, label, jm=None, betas=BETAS):
+    """The JAX step of ``jm`` (the tiny MCGAN by default), compiled once at
+    a low backend optimisation level (the compile, not the run, is what
+    costs here), from a fresh optimizer state; returns the new state, the
+    metrics and the z it drew."""
+    jm = JaxMCGAN(**ARCH) if jm is None else jm
+    g_opt = _recording(jopt.make_optimizer(ADAM, LR, betas))
+    d_opt = _recording(jopt.make_optimizer(ADAM, LR, betas))
     step = jstate.make_gan_train_step(jm, g_opt, d_opt, d_iter=D_ITER, unroll=D_ITER)
 
     def run(v, batch, key):
@@ -220,6 +236,133 @@ def test_step_buffers_match_jax(stepped, kind):
                                    stepped["jax_after"][k].numpy(), err_msg=k, **STATE_TOL)
         if kind != "codebook" and stepped["before"][k].numel() > 1:  # a 1-vector u is +-1
             assert not torch.equal(stepped["port_after"][k], stepped["before"][k]), k
+
+
+# ------------------------------------------------------------ CGAN step
+CGAN_ARCH = dict(data_shape=(32, 32, 3), latent_size=LATENT, generator_hidden_size=(16, 8, 8),
+                 discriminator_hidden_size=(8, 8, 16, 16), num_mode=K, embedding_size=8,
+                 cifar_style=True)
+CGAN_BETAS = (0.0, 0.9)
+
+
+def _cgan_port_state(variables):
+    model = CGAN(**CGAN_ARCH)
+    model.load_state_dict(from_jax_variables(variables), strict=True)
+    return pstate.GANTrainState(
+        model, popt.make_optimizer(model.generator.parameters(), ADAM, LR, CGAN_BETAS),
+        popt.make_optimizer(model.discriminator.parameters(), ADAM, LR, CGAN_BETAS),
+        torch.Generator().manual_seed(0))
+
+
+@pytest.fixture(scope="module")
+def cgan_stepped():
+    """One JAX CGAN step and one port step from the same state, batch and z.
+    The variable tree is the port CGAN's, which
+    ``test_cgan_checkpoint_read_by_jax`` holds to the JAX CGAN's."""
+    rng = np.random.default_rng(6)
+    img = rng.uniform(-1, 1, (B, 32, 32, 3)).astype(np.float32)
+    label = (np.arange(B) % K).astype(np.int32)
+    v = _fill(to_jax_gan_variables(CGAN(**CGAN_ARCH)), rng)
+    with ThreadPoolExecutor(1) as pool:  # see ``stepped``
+        port = pool.submit(_cgan_port_state, v)
+        new, metrics, zs = _jax_step(v, img, label, JaxCGAN(**CGAN_ARCH), CGAN_BETAS)
+        pts = port.result()
+    model = pts.model
+    before = {k: t.clone() for k, t in model.state_dict().items()}
+    g_seen = _record_grads(pts.g_opt, model.generator, "generator")
+    d_seen = _record_grads(pts.d_opt, model.discriminator, "discriminator")
+    launches = fd.first_dblock.launches
+    got = pstate.make_gan_train_step(d_iter=D_ITER)(
+        pts, {"img": torch.from_numpy(img), "label": torch.from_numpy(label)},
+        z=[torch.tensor(np.asarray(z)) for z in zs])
+    return dict(
+        jax_metrics={k: float(m) for k, m in metrics.items()},
+        port_metrics={k: float(m) for k, m in got.items()},
+        jax_grads={**_tree_keys("generator", new.g_opt_state[1]),
+                   **_tree_keys("discriminator", new.d_opt_state[1])},
+        port_grads={**g_seen[0], **d_seen[0]}, n_updates=(len(d_seen), len(g_seen)),
+        jax_after=from_jax_gan_train_state(new.g_params, new.d_params, new.state),
+        port_after=model.state_dict(), before=before, model=model,
+        launches=fd.first_dblock.launches - launches)
+
+
+def test_cgan_step_losses_match_jax(cgan_stepped):
+    for k in ("Loss_D", "Loss_G", "Loss"):
+        np.testing.assert_allclose(cgan_stepped["port_metrics"][k],
+                                   cgan_stepped["jax_metrics"][k], rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
+    assert cgan_stepped["n_updates"] == (D_ITER, 1) and cgan_stepped["launches"] == 0
+
+
+@pytest.mark.parametrize("part", ["generator", "discriminator"])
+def test_cgan_step_gradients_and_parameters_match_jax(cgan_stepped, part):
+    """The first D update's gradients and the G update's, then every
+    parameter after the step (D took two updates, G one)."""
+    st = cgan_stepped
+    names = [n for n, _ in st["model"].named_parameters() if n.startswith(part)]
+    assert names and set(names) == {k for k in st["jax_grads"] if k.startswith(part)}
+    updates = D_ITER if part == "discriminator" else 1
+    top = max(np.abs(st["jax_grads"][k].numpy()).max() for k in names)
+    dead = []
+    for k in names:
+        w, g = st["jax_grads"][k].numpy(), st["port_grads"][k].numpy()
+        diff = np.abs(st["port_after"][k].numpy() - st["jax_after"][k].numpy())
+        assert diff.max() <= 2 * LR * updates, (k, diff.max() / LR)
+        if np.abs(w).max() <= SIGN_NOISE * top:  # zero but for rounding in both
+            assert np.abs(g).max() <= SIGN_NOISE * top, k
+            dead.append(k)
+            continue
+        np.testing.assert_allclose(g, w, rtol=GRAD_RTOL, atol=GRAD_ATOL * np.abs(w).max(),
+                                   err_msg=k)
+        clear = np.abs(w) > SIGN_NOISE * np.abs(w).max()
+        assert diff[clear].max() <= LR / 100, (k, diff[clear].max() / LR)
+    # without gates, a per-channel constant that G's inner blocks add reaches
+    # the head BatchNorm only through the linear shortcuts, and the
+    # normalisation removes it: those biases' gradients are zero
+    inner = len(st["model"].generator.blocks) - 1
+    want_dead = ([f"generator.blocks._CGenResBlock_{i}.Conv_{j}.bias" for i in range(inner)
+                  for j in (1, 2)] if part == "generator" else [])
+    assert sorted(dead) == sorted(want_dead)
+
+
+@pytest.mark.parametrize("kind", ["running_mean", "running_var", ".u"])
+def test_cgan_step_buffers_match_jax(cgan_stepped, kind):
+    keys = [k for k in cgan_stepped["jax_after"] if k.endswith(kind)]
+    assert keys
+    for k in keys:
+        np.testing.assert_allclose(cgan_stepped["port_after"][k].numpy(),
+                                   cgan_stepped["jax_after"][k].numpy(), err_msg=k,
+                                   **STATE_TOL)
+
+
+def test_cgan_checkpoint_read_by_jax(tmp_path):
+    """The port trainer's CGAN checkpoint is read by the JAX package's own
+    ``load_checkpoint``, and its ``model_dict`` has the JAX CGAN's variable
+    tree and shapes; loading it back gives the port's model exactly."""
+    cfg = dict(pconfig.load_config(), data_name="Synthetic", model_name="cgan", device="cpu",
+               output_dir=str(tmp_path), derive_model_params=False,
+               gan={"latent_size": 16, "generator_hidden_size": [16] * 4,
+                    "discriminator_hidden_size": [16] * 4, "embedding_size": 8},
+               classifier={"hidden_size": [4, 8, 8, 8]})
+    exp = ploop.Experiment(cfg)
+    exp.setup()
+    exp._resume()
+    exp.epoch_stats.append({"epoch": 1})
+    exp._checkpoint(1, copy_to_best=True)
+    exp._ckpt_writer.wait()
+    ckpt = jax_load_checkpoint(exp.cfg, exp.tag, "best")
+    assert ckpt["optimizer_dict"].keys() == {"generator", "discriminator"}
+    shapes = jax.eval_shape(lambda: jax_build_model(exp.cfg).init(
+        {"params": jax.random.PRNGKey(0), "z": jax.random.PRNGKey(1)},
+        {"img": np.zeros((2, 32, 32, 3), np.float32), "label": np.zeros(2, np.int32)},
+        train=True))
+    want = jax.tree_util.tree_map(lambda s: (tuple(s.shape), np.dtype(s.dtype)), shapes)
+    got = jax.tree_util.tree_map(lambda a: (a.shape, a.dtype), ckpt["model_dict"])
+    assert got == want
+    back = build_model(exp.cfg, "cpu")
+    back.load_state_dict(from_jax_variables(ckpt["model_dict"]))
+    sd = exp.model.state_dict()
+    assert all(torch.equal(t, sd[k]) for k, t in back.state_dict().items())
 
 
 # ------------------------------------------------------------- losses
