@@ -69,6 +69,36 @@ Phases, each of which exits non-zero on failure:
    finite and in [0, 255], every PNG read back with the port's own decoder
    and its size checked against its grid; 0 ``first_dblock`` launches.
 
+10. vq: the VQ-VAE's two kernels against their plain versions (f32 on the
+    card): ``vq_assign`` at N = 8,192 (a train batch's 128 x 8 x 8 codes)
+    and 32,768 (an eval batch), a ragged 17 x 64, N = 1, a codebook with
+    every column twice (ties go to the lower code) and a tiny codebook,
+    checked against float64 distances within ``VQ_MARGIN``; ``vq_ema`` on
+    the rows and codes of a full-width VQ-VAE train step after 13 steps
+    (which fall on a few codes: the main path's traffic), and at N = 8,192 with the codes
+    spread, with a row mask and collapsed onto three, ragged and N = 1
+    (cluster sizes bit-equal, the rest within ``EMA_TOL`` of each code's
+    column); each timed beside its plain version, a PyTorch yardstick and
+    its bound (run after the first D-block's checks, before the slice); the
+    kernels' own device times from ``torch.profiler`` after every timed
+    phase;
+11. vae: MCVAE and CVAE at the CIFAR10 configuration's full width (hidden
+    [64, 128, 256], latent 128, 2 residual blocks) on the trainer's
+    CIFAR10-shaped files through ``cli.train``: 2 epochs of ``VAE_STEPS``
+    steps, each evaluated on the whole train split (BCE), ``resume_mode=1``
+    to epoch 3 with the state checked equal, ``cli.test_model``, and the
+    five ``cli.sample`` calls of phase 9 on ``_best``; no hand kernel runs;
+12. vqvae: the CIFAR10 VQ-VAE (hidden [128, 128], D 64, K 512, B=128) step
+    through the kernels and through the plain versions in turns (2 launches
+    per step: one search, one EMA update), one step of each from the same
+    state held to the other (loss, equal codes, the three buffers), one
+    eval batch (1 search), then ``cli.train`` for 2 epochs of ``VAE_STEPS``
+    steps (MSE per epoch; one search per eval batch); one step of each path
+    under ``torch.profiler`` at the end (``vqvae profile:``);
+13. real (continued): MCVAE, CVAE and VQ-VAE on the real digits at the
+    MNIST configuration's width, ``REAL_VAE_EPOCHS`` epochs each, BCE / MSE
+    per epoch.
+
 The last three lines are the card's name and power limit as ``nvidia-smi``
 gives them, one JSON object listing every kernel, and
 ``{"ok": true, "device": {...}}``. With ``--profile DIR`` one more G->D pass,
@@ -108,16 +138,19 @@ from mcgm_tpu_torch.io.images import read_png
 from mcgm_tpu_torch.io.jax_import import to_jax_inception
 from mcgm_tpu_torch.kernels import build
 from mcgm_tpu_torch.kernels import first_dblock as fd
+from mcgm_tpu_torch.kernels import vq as kvq
 from mcgm_tpu_torch.models import build_model
 from mcgm_tpu_torch.ops.layers import fold_pool
 from mcgm_tpu_torch.report.logger import Logger
-from mcgm_tpu_torch.train.state import make_gan_train_step
+from mcgm_tpu_torch.train.optim import make_optimizer
+from mcgm_tpu_torch.train.state import TrainState, make_gan_train_step, make_train_step
 from mcgm_tpu_torch.utils import card_name_and_limit, save, vis_path
 from mcgm_tpu_torch.workflows.generate import class_sweep
 from mcgm_tpu_torch.workflows.sampling import Sampler
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12  # outside the tensor cores
 PEAK_BYTES = 3.35e12
 KERNEL_TOL = 2e-2  # max|kernel - plain| <= KERNEL_TOL * max|plain|, both bf16 out
 SLICE_TOL = 5e-2   # max|bf16 path - f32 plain path| <= SLICE_TOL * max|f32 plain path|
@@ -125,6 +158,7 @@ TRAIN_TOL = 5e-2   # kernel path vs plain path, one train step: losses, first D 
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 NUM_MODE = 20
 DEV = torch.device("cuda")
+TENSOR_CORE_KERNELS = ("first_dblock",)
 INCEPTION_TOL = 1e-3  # max|card - cpu| <= INCEPTION_TOL * max|cpu|, both f32
 TRAINER_STEPS, TRAINER_EPOCHS = 20, 2
 TRAINER_IMAGES = {"train": 50_000, "test": 10_000}  # CIFAR10's splits
@@ -134,6 +168,16 @@ REAL_DIGITS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", 
                            "real_digits_shard.npz")
 REAL_TRAIN = 1297  # the rest of the 1,797 digits is the test split
 CLASSIFIER_EPOCHS, REAL_GAN_EPOCHS = 10, 20
+# VQ kernels: two codes whose float64 distances are closer than VQ_MARGIN *
+# (|x|^2 + max|e|^2) cannot be told apart by f32 sums in another order;
+# EMA sums of rows in another order within EMA_TOL * max|plain|
+VQ_MARGIN, EMA_TOL = 1e-5, 1e-5
+# one VQ-VAE step through the kernels vs the plain versions: the loss within
+# VQ_STEP_TOL * |plain|, the buffers within VQ_STEP_TOL of each code's column
+# (column_errors), at least VQ_CODES_EQUAL of the codes equal (a code may flip
+# where two are closer than the margin)
+VQ_STEP_TOL, VQ_CODES_EQUAL = 1e-2, 0.99
+VAE_STEPS, REAL_VAE_EPOCHS = 20, 10
 
 
 def log(*args):
@@ -283,8 +327,8 @@ def check_first_dblock_grad(shape, seed):
 
 
 def sass_tensor_core_count(name: str) -> dict | None:
-    """Counts of HMMA / HGMMA instructions in the built library's SASS, or
-    None where ``cuobjdump`` is not installed."""
+    """Counts of HMMA / HGMMA (tensor-core) and FFMA instructions in the
+    built library's SASS, or None where ``cuobjdump`` is not installed."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
         tool = shutil.which("cuobjdump")
@@ -292,7 +336,7 @@ def sass_tensor_core_count(name: str) -> dict | None:
             return None
     sass = subprocess.run([tool, "-sass", str(build.library_path(name))], capture_output=True,
                           text=True, check=True, timeout=120).stdout
-    return {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("HMMA", "HGMMA")}
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HMMA", "HGMMA", "FFMA")}
 
 
 # ------------------------------------------------------------------- slice
@@ -302,6 +346,8 @@ PHASES = ("generate", "discriminate")
 def kernel_category(name: str) -> str:
     if "first_dblock" in name:
         return "first_dblock (hand kernel)"
+    if "vq_assign_kernel" in name or "vq_ema_kernel" in name:
+        return "vq_assign / vq_ema (hand kernels)"
     if any(k in name for k in ("xmma", "cudnn", "dgrad", "wgrad", "convolve", "winograd")):
         return "conv (cuDNN)"
     if any(k in name for k in ("gemv", "gemm", "nvjet", "cublas", "dot_kernel", "cutlass")):
@@ -861,10 +907,10 @@ def run_real(name_limit: str, work: str):
     return launches, result, (base, out_dir)
 
 
-def _grid_shape(images: int, nrow: int, side: int = 32) -> tuple:
-    """The PNG of ``images`` 1-channel images, ``nrow`` per row, padding 2."""
+def _grid_shape(images: int, nrow: int, channels: int, side: int = 32) -> tuple:
+    """The PNG of ``images`` images, ``nrow`` per row, padding 2."""
     rows = (images + nrow - 1) // nrow
-    return (rows * (side + 2) + 2, nrow * (side + 2) + 2, 1)
+    return (rows * (side + 2) + 2, nrow * (side + 2) + 2, channels)
 
 
 # (workflow, extra flags, dump name, images generated, [(grid name, images, per row)])
@@ -886,29 +932,10 @@ def run_workflows(name_limit: str, base: list, out_dir: str):
     rows, bad = [], []
     fd.first_dblock.launches = 0  # the counted run of the workflows
     for model in ("mcgan", "cgan"):
-        tag = f"0_MNIST_label_{model}_0.5"
-        for wf, extra, dump, images, grids in WORKFLOW_CASES:
-            t0 = time.perf_counter()
-            (out,) = cli_sample.main(wf, base + ["--model_name", model, "--control_name", "0.5"]
-                                     + extra)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            rec = {"model": model, "workflow": wf, "args": extra, "images": images,
-                   "seconds": dt, "images_per_s": images / dt, "png": []}
-            if dump:
-                arr = np.load(os.path.join(out_dir, "npy", f"{dump}_{tag}.npy"))
-                rec["dump"] = list(arr.shape)
-                if (arr.shape != (10_000, 1, 32, 32) or not np.isfinite(arr).all()
-                        or arr.min() < 0 or arr.max() > 255 or not np.array_equal(arr, out)):
-                    bad.append(f"{model} {wf}: dump {arr.shape} [{arr.min()}, {arr.max()}]")
-            for name, n, nrow in grids:
-                path = vis_path({"output_dir": out_dir}, f"{name.format(tag=tag)}.png")
-                png, want = read_png(path), _grid_shape(n, nrow)
-                rec["png"].append({"file": os.path.basename(path), "shape": list(png.shape)})
-                if png.shape != want:
-                    bad.append(f"{path}: {png.shape}, want {want}")
-            rows.append(rec)
-            log("workflows:", json.dumps(rec))
+        for rec in run_sample_calls(model, "0.5", base, out_dir, f"0_MNIST_label_{model}_0.5",
+                                    1, bad):
+            rows.append(dict(rec, model=model))
+            log("workflows:", json.dumps(rows[-1]))
     launches = {"first_dblock": fd.first_dblock.launches}
     if launches["first_dblock"]:
         bad.append(f"first_dblock launched {launches['first_dblock']} times (G only)")
@@ -917,6 +944,512 @@ def run_workflows(name_limit: str, base: list, out_dir: str):
     if bad:
         raise SystemExit("workflows failed: " + "; ".join(bad))
     return launches, rows
+
+
+# -------------------------------------------------------------- VQ kernels
+def vq_margin(flat, emb):
+    """Per row, the f32 margin within which two codes' distances cannot be
+    told apart: ``VQ_MARGIN * (|x|^2 + max_k |e_k|^2)``, the size of the
+    terms the distance is summed from."""
+    return VQ_MARGIN * ((flat.double() ** 2).sum(1) + (emb.double() ** 2).sum(0).max())
+
+
+def vq_inputs(N, D, K, seed, tie=False):
+    """Rows ~ N(0, 1) and a codebook ~ N(0, 1) ``[D, K]``; with ``tie`` every
+    column appears twice, at shuffled places."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    flat = torch.randn((N, D), generator=g, device=DEV)
+    if tie:
+        half = torch.randn((D, K // 2), generator=g, device=DEV)
+        emb = torch.cat([half, half], 1)[:, torch.randperm(K, generator=g, device=DEV)]
+    else:
+        emb = torch.randn((D, K), generator=g, device=DEV)
+    return flat, emb.contiguous()
+
+
+def vq_assign_bound(N, D, K):
+    flop = 2 * N * K * D
+    nbytes = 4 * (N * D + D * K + N + N * D)  # x and the codebook in, codes and q out
+    t_ops, t_bytes = flop / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def vq_ema_bound(N, D, K, weighted):
+    flop = 2 * N * D  # a multiply-add per element of x
+    nbytes = 4 * (N * D + N + (N if weighted else 0) + 2 * K + 3 * D * K)
+    t_ops, t_bytes = flop / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_vq_assign(N, D, K, seed, timers: list | None = None, tie: bool = False):
+    """The kernel's codes and rows against the plain version's (f32 on the
+    card) and the distances in float64: codes equal wherever the best two
+    codes are further apart than the margin, the chosen code's distance
+    within the margin of the least everywhere, q the chosen columns; with
+    ``tie``, every code the lower of its two copies. With ``timers``, timed
+    (see :func:`time_vq`)."""
+    flat, emb = vq_inputs(N, D, K, seed, tie)
+    code, q = kvq.vq_assign(flat, emb)
+    code_r, _ = kvq.vq_assign_reference(flat, emb)
+    torch.cuda.synchronize()
+    d64 = ((flat.double() ** 2).sum(1, keepdim=True) - 2 * flat.double() @ emb.double()
+           + (emb.double() ** 2).sum(0, keepdim=True))
+    top2 = d64.topk(2, dim=1, largest=False).values
+    margin = vq_margin(flat, emb)
+    clear = (top2[:, 1] - top2[:, 0]) > margin
+    chosen = d64.gather(1, code.long()[:, None])[:, 0]
+    bad = []
+    if code.dtype != torch.int32 or code.shape != (N,) or q.shape != (N, D):
+        bad.append(f"shapes {code.dtype} {tuple(code.shape)} {tuple(q.shape)}")
+    if not torch.equal(code[clear], code_r[clear]):
+        bad.append(f"{int((code[clear] != code_r[clear]).sum())} codes differ where clear")
+    worst = (chosen - top2[:, 0] - margin).max().item()
+    if worst > 0:
+        bad.append(f"a chosen distance exceeds the least by more than the margin ({worst})")
+    if not torch.equal(q, emb.t()[code.long()]):
+        bad.append("q is not the chosen codebook columns")
+    if tie:  # the first column equal to each column
+        lowest = (emb.t()[:, None, :] == emb.t()[None, :, :]).all(-1).int().argmax(1)
+        if not torch.equal(code.long(), lowest[code.long()]):
+            bad.append("a tie did not go to the lower code")
+    # max_abs_err: the chosen code's float64 distance above the least
+    rec = {"shape": [N, D, K], "case": "ties" if tie else "random rows and codebook",
+           "rows": N, "rows_clear": int(clear.sum()), "codes_equal": int((code == code_r).sum()),
+           "max_abs_err": (chosen - top2[:, 0]).max().item(),
+           "max_margin": margin.max().item(), "ok": not bad}
+    if timers is not None:
+        esq = (emb ** 2).sum(0, keepdim=True)
+        rec["bound_ms"], rec["bound_by"] = vq_assign_bound(N, D, K)
+        time_vq(rec, "vq_assign", lambda: kvq.vq_assign(flat, emb),
+                lambda: kvq.vq_assign_reference(flat, emb),
+                lambda: torch.addmm(esq, flat, emb, alpha=-2).argmin(1), timers)
+    log("vq_assign", json.dumps(rec))
+    if bad:
+        raise SystemExit(f"vq_assign disagrees with its plain version at {[N, D, K]}: {bad}")
+    return rec
+
+
+def column_errors(got, want, skip=None) -> dict:
+    """A VQ buffer (``[K]`` or ``[D, K]``) against the plain version's, each
+    code's column held to its own size: ``max_abs_err`` and ``worst_ratio
+    = max_k max_d |got - want| / max_d |want|`` over the codes not in the
+    mask ``skip`` (a column equal to the plain one counts 0, any error in an
+    all-zero one inf). An update from cluster sizes near 0 leaves an unused
+    code's column near ``1 / eps`` times the size of a used one's, so one
+    bound for the whole buffer would pass any error in the used codes."""
+    g, w = got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1])
+    if skip is not None:
+        g, w = g[:, ~skip], w[:, ~skip]
+    err, scale = (g - w).abs().amax(0), w.abs().amax(0)
+    ratio = torch.where(err == 0, torch.zeros_like(err), err / scale)
+    return {"max_abs_err": err.max().item(), "worst_ratio": ratio.max().item(),
+            "codes": int(g.shape[1])}
+
+
+def vq_step_inputs(cfg, steps: int):
+    """The EMA's inputs in train step ``steps + 1`` of the full-width CIFAR10
+    VQ-VAE (seed 0, the batch of :func:`vqvae_state`, as ``vqvae:`` times
+    it): the encoder's rows, their codes from ``vq_assign`` and the
+    quantizer's buffers. From the first update on, an unused code's column
+    is ~1/eps times the size of a used one's and out of reach, and the codes
+    fall onto a few of those the first step took."""
+    ts, batch = vqvae_state(cfg, plain=False)
+    step = make_train_step()
+    for _ in range(steps):
+        step(ts, batch)
+    model, qz = ts.model, ts.model.quantizer
+    with torch.no_grad():
+        h = model.encoder(batch["img"].permute(0, 3, 1, 2).to(model.compute_dtype), True)
+    flat = h.permute(0, 2, 3, 1).reshape(-1, qz.embedding.shape[0]).float().contiguous()
+    code, _ = kvq.vq_assign(flat, qz.embedding)
+    return flat, code, {"cluster_size": qz.cluster_size, "embedding_mean": qz.embedding_mean,
+                        "embedding": qz.embedding}
+
+
+def check_vq_ema(N, D, K, seed, timers: list | None = None, weighted: bool = False,
+                 collapsed: bool = False, inputs=None):
+    """The update on copies of the same buffers through the kernel and the
+    plain version (f32 on the card): cluster sizes equal (the counts are
+    exact), ``embedding_mean`` and ``embedding`` within ``EMA_TOL`` of each
+    code's column (:func:`column_errors`; sums of rows in another order).
+    Random rows and codebook, the codes from ``vq_assign`` (spread) or with
+    ``collapsed`` every row on one of three codes, cluster sizes in [1, 3];
+    or ``inputs = (flat, code, buffers)``, as :func:`vq_step_inputs` gives
+    them. With ``timers``, timed (see :func:`time_vq`)."""
+    if inputs is not None:
+        flat, code, bufs = inputs
+        if (*flat.shape, bufs["cluster_size"].shape[0]) != (N, D, K):
+            raise SystemExit(f"vq_ema: the step's inputs are {tuple(flat.shape)}, K "
+                             f"{bufs['cluster_size'].shape[0]}, not {[N, D, K]}")
+        case = "a VQ-VAE train step's rows and codes"
+    else:
+        flat, emb = vq_inputs(N, D, K, seed)
+        g = torch.Generator(device=DEV).manual_seed(seed + 1)
+        if collapsed:
+            code = torch.tensor([5, 6, K - 1], device=DEV, dtype=torch.int32)[
+                torch.randint(0, 3, (N,), generator=g, device=DEV)]
+        else:
+            code, _ = kvq.vq_assign(flat, emb)
+        cs = torch.rand(K, generator=g, device=DEV) * 2 + 1
+        bufs = {"cluster_size": cs, "embedding_mean": emb * cs, "embedding": emb}
+        case = "three codes" if collapsed else "random rows, codes spread"
+    g = torch.Generator(device=DEV).manual_seed(seed + 2)
+    w = (torch.rand(N, generator=g, device=DEV) < 0.75).float() if weighted else None
+    got = {k: t.clone() for k, t in bufs.items()}
+    want = {k: t.clone() for k, t in bufs.items()}
+    kvq.vq_ema(flat, code, w, *got.values(), 0.99, 1e-5)
+    kvq.vq_ema_reference(flat, code, w, *want.values(), 0.99, 1e-5)
+    torch.cuda.synchronize()
+    rec = {"shape": [N, D, K], "case": case + (", rows masked" if weighted else ""),
+           "codes_used": int(torch.unique(code).numel())}
+    bad = []
+    for k in bufs:
+        rec[k] = column_errors(got[k], want[k])
+        tol = 0.0 if k == "cluster_size" else EMA_TOL
+        if not (torch.isfinite(got[k]).all() and rec[k]["worst_ratio"] <= tol):
+            bad.append(k)
+    rec["max_abs_err"] = max(rec[k]["max_abs_err"] for k in bufs)
+    if timers is not None:
+        # the update runs again and again on one copy: the same work each time
+        rec["bound_ms"], rec["bound_by"] = vq_ema_bound(N, D, K, weighted)
+        code64 = code.long()
+        time_vq(rec, "vq_ema", lambda: kvq.vq_ema(flat, code, w, *got.values(), 0.99, 1e-5),
+                lambda: kvq.vq_ema_reference(flat, code, w, *want.values(), 0.99, 1e-5),
+                lambda: (torch.bincount(code64, minlength=K), torch.zeros(
+                    (K, D), device=DEV).index_add_(0, code64, flat)), timers)
+    log("vq_ema", json.dumps(rec))
+    if bad:
+        raise SystemExit(f"vq_ema disagrees with its plain version at {[N, D, K]} ({case}) "
+                         f"in {bad}: {json.dumps(rec)}")
+    return rec
+
+
+def time_vq(rec, kname, kernel, plain, library, timers: list) -> None:
+    """CUDA-event times of back-to-back calls of the wrapper, the plain
+    version and the PyTorch yardstick (``wrapper_ms``, ``plain_ms``,
+    ``library_ms``: what a caller waits for, host included). The kernel's
+    own device time, ``ms``, is read later by :func:`vq_device_times`,
+    after every timed phase, from ``kernel`` queued in ``timers``."""
+    rec["wrapper_ms"] = cuda_ms(kernel, 50)
+    rec["plain_ms"] = cuda_ms(plain, 50)
+    rec["library_ms"] = cuda_ms(library, 50)
+    timers.append((rec, kname, kernel))
+
+
+def vq_device_times(timers: list, reps: int = 20) -> None:
+    """For each record queued by :func:`time_vq`, ``reps`` calls of the
+    wrapper under ``torch.profiler``: ``ms`` is the mean device time of one
+    launch of the kernel itself (the wrapper's copies and the host left
+    out) and ``roofline_share`` its bound over it. After every timed phase,
+    as the other profiles."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for rec, kname, kernel in timers:
+        kernel()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                kernel()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events()
+              if e.device_type == DeviceType.CUDA and f"{kname}_kernel" in e.name]
+        if len(ev) != reps:
+            raise SystemExit(f"{kname}: the profiler saw {len(ev)} launches of {reps}")
+        rec["ms"] = sum(e.time_range.end - e.time_range.start for e in ev) / 1e3 / reps
+        rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
+        log(f"{kname} device:", json.dumps({k: rec[k] for k in (
+            "shape", "case", "ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
+            "roofline_share")}))
+
+
+def vq_launches() -> dict:
+    return {"vq_assign": kvq.vq_assign.launches, "vq_ema": kvq.vq_ema.launches}
+
+
+def zero_counts() -> None:
+    """Every kernel's count to 0, just before a path is driven."""
+    fd.first_dblock.launches = kvq.vq_assign.launches = kvq.vq_ema.launches = 0
+
+
+def counts() -> dict:
+    return {"first_dblock": fd.first_dblock.launches, **vq_launches()}
+
+
+# ------------------------------------------------------------------ VAE
+def _history(exp, names):
+    return {n: exp.logger.history.get(n, []) for n in names}
+
+
+def run_vae(name_limit: str, data_dir: str, out_dir: str):
+    """MCVAE and CVAE on the CIFAR10-shaped data through ``cli.train``: 2
+    epochs of ``VAE_STEPS`` steps (each evaluated on the whole train
+    split), ``resume_mode=1`` to epoch 3 with the state checked equal,
+    ``cli.test_model`` and the five ``cli.sample`` calls on ``_best``."""
+    base = ["--data_name", "CIFAR10", "--data_dir", data_dir, "--output_dir", out_dir,
+            "--device", str(DEV)]
+    runs, bad, path_counts = {}, [], {}
+    for model, ctrl in (("mcvae", "0.5"), ("cvae", "None")):
+        argv = base + ["--model_name", model, "--control_name", ctrl]
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        (exp,) = cli_train.main(argv + ["--num_epochs", str(TRAINER_EPOCHS)],
+                                limit_train_batches=VAE_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        saved = to_numpy(exp.state_dict())
+        (exp3,) = cli_train.main(argv + ["--num_epochs", str(TRAINER_EPOCHS + 1),
+                                         "--resume_mode", "1"], limit_train_batches=VAE_STEPS)
+        resumed = exp3.resumed or {}
+        mismatch = _state_mismatch(saved, resumed["state"]) if resumed else ["nothing resumed"]
+        if mismatch:
+            bad.append(f"{model}: resumed state differs at {mismatch[:8]}")
+        (tested,) = cli_test_model.main(argv)
+        stats = exp.epoch_stats + exp3.epoch_stats
+        hist = _history(exp3, ("train/Loss", "train/BCE", "test/Loss", "test/BCE"))
+        if any(len(v) != TRAINER_EPOCHS + 1 or not all(math.isfinite(x) for x in v)
+               for v in hist.values()):
+            bad.append(f"{model}: Loss / BCE not finite every epoch: {hist}")
+        wf = run_sample_calls(model, ctrl, base, out_dir, exp.tag, exp.cfg["data_shape"][-1],
+                              bad)
+        path_counts[model] = counts()
+        runs[model] = {
+            "tag": exp.tag, "steps_per_epoch": VAE_STEPS, "run_wall_seconds": wall,
+            "parameters": sum(p.numel() for p in exp.model.parameters()),
+            "train_images_per_s": [s["train_images_per_s"] for s in stats],
+            "eval_images": [s["eval_images"] for s in stats],
+            "eval_seconds": [s["eval_seconds"] for s in stats],
+            "bce_by_epoch": hist["test/BCE"], "train_bce_by_epoch": hist["train/BCE"],
+            "test_model": dict(tested.mean), "resumed_state_equal": not mismatch,
+            "workflows": wf, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        log(f"vae {model}:", json.dumps(runs[model]))
+    for model, c in path_counts.items():
+        if any(c.values()):
+            bad.append(f"{model}: hand kernels launched {c} (the VAE path has none)")
+    log("vae:", json.dumps({"card": name_limit, "launches": path_counts}))
+    if bad:
+        raise SystemExit("vae failed: " + "; ".join(bad))
+    return path_counts, runs
+
+
+def run_sample_calls(model, ctrl, base, out_dir, tag, channels, bad) -> list:
+    """``cli.sample`` for each of ``WORKFLOW_CASES`` on ``tag``'s ``_best``:
+    every dump finite, in [0, 255] and what the call returned, every PNG
+    read back with the port's own decoder and its whole shape (channels
+    too) checked against its grid. Returns one record per call; appends
+    what failed to ``bad``."""
+    rows = []
+    for wf, extra, dump, images, grids in WORKFLOW_CASES:
+        t0 = time.perf_counter()
+        (out,) = cli_sample.main(wf, base + ["--model_name", model, "--control_name", ctrl]
+                                 + extra)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rec = {"workflow": wf, "args": extra, "images": images, "seconds": dt,
+               "images_per_s": images / dt, "png": []}
+        if dump:
+            arr = np.load(os.path.join(out_dir, "npy", f"{dump}_{tag}.npy"))
+            rec["dump"] = list(arr.shape)
+            if (arr.shape != (10_000, channels, 32, 32) or not np.isfinite(arr).all()
+                    or arr.min() < 0 or arr.max() > 255 or not np.array_equal(arr, out)):
+                bad.append(f"{model} {wf}: dump {arr.shape} [{arr.min()}, {arr.max()}]")
+        for name, n, nrow in grids:
+            path = vis_path({"output_dir": out_dir}, f"{name.format(tag=tag)}.png")
+            png, want = read_png(path), _grid_shape(n, nrow, channels)
+            rec["png"].append({"file": os.path.basename(path), "shape": list(png.shape)})
+            if png.shape != want:
+                bad.append(f"{path}: {png.shape}, want {want}")
+        rows.append(rec)
+    return rows
+
+
+# ---------------------------------------------------------------- VQ-VAE
+def vqvae_cfg() -> dict:
+    return process_control({"data_name": "CIFAR10", "model_name": "vqvae", "ae_name": "vqvae"})
+
+
+def vqvae_state(cfg, plain: bool):
+    """The full-width VQ-VAE (seed 0) on the card, Adam 3e-4 with clip 1,
+    and a batch of CIFAR-shaped images from seed 0."""
+    model = build_model(cfg, DEV).use_plain_kernels(plain)
+    opt = make_optimizer(model.parameters(), {"optimizer_name": "Adam", "lr": 3e-4,
+                                              "weight_decay": 0}, grad_clip=1.0)
+    g = torch.Generator(device=DEV).manual_seed(0)
+    B = cfg["batch_size"]["train"]
+    img = torch.rand((B, *cfg["data_shape"]), generator=g, device=DEV) * 2 - 1
+    return TrainState(model, opt), {"img": img, "label": torch.zeros(B, dtype=torch.long,
+                                                                     device=DEV)}
+
+
+def vqvae_steps(ts, batch, step, steps: int, warmup: int) -> dict:
+    for _ in range(warmup):
+        step(ts, batch)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        out = step(ts, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return {"images_per_s": batch["img"].shape[0] * steps / dt, "ms_per_step": dt / steps * 1e3,
+            "launches": vq_launches(), "loss": float(out["loss"])}
+
+
+def run_vqvae(name_limit: str, data_dir: str, out_dir: str):
+    """The CIFAR10 VQ-VAE step at full width through the kernels and
+    through the plain versions in turns; one step of each from the same
+    state held to the other; one eval batch; then ``cli.train``."""
+    cfg = vqvae_cfg()
+    step = make_train_step()
+    states = {plain: vqvae_state(cfg, plain) for plain in (False, True)}
+    model = states[False][0].model
+    B = cfg["batch_size"]["train"]
+    log(f"vqvae: CIFAR10, hidden {cfg['vqvae']['hidden_size']}, D "
+        f"{cfg['vqvae']['embedding_size']}, K {cfg['vqvae']['num_embedding']}, "
+        f"{sum(p.numel() for p in model.parameters())} parameters, B={B}, compute "
+        f"{model.compute_dtype}")
+    runs, bad, step_counts = {False: [], True: []}, [], None
+    for plain in (False, True, True, False):
+        res = vqvae_steps(*states[plain], step, TRAIN_STEPS, TRAIN_WARMUP)
+        step_counts = step_counts or dict(res["launches"])  # the first: the counted run
+        want = {"vq_assign": 0, "vq_ema": 0} if plain else {"vq_assign": TRAIN_STEPS,
+                                                             "vq_ema": TRAIN_STEPS}
+        if res["launches"] != want or not math.isfinite(res["loss"]):
+            bad.append(f"{'plain' if plain else 'kernel'} path: {res}")
+        runs[plain].append(res)
+        log(f"vqvae {'plain' if plain else 'kernel'}:", json.dumps(res))
+
+    # one step from the same state through each path
+    (ts_k, batch), (ts_p, _) = vqvae_state(cfg, False), vqvae_state(cfg, True)
+    out_k, out_p = step(ts_k, batch), step(ts_p, batch)
+    torch.cuda.synchronize()
+    code_k, code_p = out_k["output"]["code"], out_p["output"]["code"]
+    cmp = {"loss": {"kernel": float(out_k["loss"]), "plain": float(out_p["loss"])},
+           "codes_equal_share": float((code_k == code_p).float().mean())}
+    if not abs(cmp["loss"]["kernel"] - cmp["loss"]["plain"]) <= VQ_STEP_TOL * abs(
+            cmp["loss"]["plain"]):
+        bad.append(f"step loss {cmp['loss']}")
+    if cmp["codes_equal_share"] < VQ_CODES_EQUAL:
+        bad.append(f"equal codes {cmp['codes_equal_share']}")
+    # a code that a row went to on one path only has other sums; every
+    # other code's column is held to its own size (see column_errors)
+    differ = (code_k != code_p).reshape(-1)
+    K = ts_p.model.quantizer.cluster_size.shape[0]
+    skip = torch.zeros(K, dtype=torch.bool, device=DEV)
+    skip[code_k.reshape(-1)[differ].long()] = True
+    skip[code_p.reshape(-1)[differ].long()] = True
+    cmp["codes_used"] = int(torch.unique(code_p).numel())
+    cmp["codes_skipped"] = int(skip.sum())
+    for k in ("cluster_size", "embedding_mean", "embedding"):
+        got, want = getattr(ts_k.model.quantizer, k), getattr(ts_p.model.quantizer, k)
+        cmp[k] = column_errors(got, want, skip)
+        if not cmp[k]["worst_ratio"] <= VQ_STEP_TOL:
+            bad.append(f"{k} {cmp[k]}")
+    log("vqvae kernel vs plain:", json.dumps(cmp))
+
+    # one eval batch at the eval batch size: one search, no update
+    Be = cfg["batch_size"]["test"]
+    img = torch.rand((Be, *cfg["data_shape"]), device=DEV) * 2 - 1
+    zero_counts()
+    with torch.no_grad():
+        ev = model.eval()({"img": img}, train=False)
+    torch.cuda.synchronize()
+    eval_counts = vq_launches()
+    if eval_counts != {"vq_assign": 1, "vq_ema": 0} or not torch.isfinite(ev["loss"]):
+        bad.append(f"eval batch: {eval_counts}, loss {float(ev['loss'])}")
+
+    argv = ["--data_name", "CIFAR10", "--model_name", "vqvae", "--control_name", "None",
+            "--data_dir", data_dir, "--output_dir", out_dir, "--device", str(DEV)]
+    zero_counts()
+    t0 = time.perf_counter()
+    (exp,) = cli_train.main(argv + ["--num_epochs", str(TRAINER_EPOCHS)],
+                            limit_train_batches=VAE_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    trainer_counts = vq_launches()
+    steps = sum(s["train_steps"] for s in exp.epoch_stats)
+    eval_batches = sum(-(-s["eval_images"] // B) for s in exp.epoch_stats)
+    if trainer_counts != {"vq_assign": steps + eval_batches, "vq_ema": steps}:
+        bad.append(f"trainer: {trainer_counts} in {steps} steps and {eval_batches} eval batches")
+    hist = _history(exp, ("train/MSE", "test/MSE"))
+    if any(len(v) != TRAINER_EPOCHS or not all(math.isfinite(x) for x in v)
+           for v in hist.values()):
+        bad.append(f"trainer MSE {hist}")
+    result = {
+        "card": name_limit, "batch": B,
+        "kernel_images_per_s": [r["images_per_s"] for r in runs[False]],
+        "plain_images_per_s": [r["images_per_s"] for r in runs[True]],
+        "kernel_ms_per_step": [r["ms_per_step"] for r in runs[False]],
+        "plain_ms_per_step": [r["ms_per_step"] for r in runs[True]],
+        "launches_per_step": {k: v / TRAIN_STEPS for k, v in step_counts.items()},
+        "eval_batch_launches": eval_counts, "kernel_vs_plain": cmp,
+        "trainer": {"wall_seconds": wall, "steps": steps, "eval_batches": eval_batches,
+                    "launches": trainer_counts, "mse_by_epoch": hist["test/MSE"],
+                    "train_images_per_s": [s["train_images_per_s"] for s in exp.epoch_stats],
+                    "eval_seconds": [s["eval_seconds"] for s in exp.epoch_stats]}}
+    log("vqvae:", json.dumps(result))
+    if bad:
+        raise SystemExit("vqvae failed: " + "; ".join(bad))
+
+    def profile(out_dir):  # one step of each path, after every timed phase
+        return {path: train_profile_single(*states[plain], step, out_dir, f"vqvae_{path}")
+                for path, plain in (("kernel", False), ("plain", True))}
+
+    return {"step": step_counts, "eval": eval_counts, "trainer": trainer_counts}, result, profile
+
+
+def train_profile_single(ts, batch, step, out_dir: str, tag: str) -> dict:
+    """One single-model train step under ``torch.profiler``."""
+    def run():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(ts, batch)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    rec = device_profile(run, (), out_dir, tag)
+    return {k: rec[k] for k in ("window_ms", "device_busy_ms", "device_busy_share",
+                                "kernel_launches", "category_ms", "top_kernels")}
+
+
+def run_real_vae(name_limit: str, base: list, out_dir: str):
+    """MCVAE, CVAE and VQ-VAE on the real digits (32x32x1), ``REAL_VAE_EPOCHS``
+    epochs each, BCE / MSE per epoch on the train split."""
+    runs, bad, launches = {}, [], {}
+    for model, ctrl, metric in (("mcvae", "0.5", "BCE"), ("cvae", "None", "BCE"),
+                                ("vqvae", "None", "MSE")):
+        zero_counts()
+        t0 = time.perf_counter()
+        (exp,) = cli_train.main(base + ["--model_name", model, "--control_name", ctrl,
+                                        "--num_epochs", str(REAL_VAE_EPOCHS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[model] = counts()
+        steps = sum(s["train_steps"] for s in exp.epoch_stats)
+        evals = sum(-(-s["eval_images"] // exp.cfg["batch_size"]["train"])
+                    for s in exp.epoch_stats)
+        want = ({"first_dblock": 0, "vq_assign": steps + evals, "vq_ema": steps}
+                if model == "vqvae" else {"first_dblock": 0, "vq_assign": 0, "vq_ema": 0})
+        if launches[model] != want:
+            bad.append(f"{model}: launches {launches[model]}, want {want}")
+        hist = exp.logger.history.get(f"test/{metric}", [])
+        if len(hist) != REAL_VAE_EPOCHS or not all(math.isfinite(x) for x in hist):
+            bad.append(f"{model}: {metric} {hist}")
+        runs[model] = {"run_wall_seconds": wall, "steps": steps, "metric": metric,
+                       "by_epoch": hist, "train_by_epoch": exp.logger.history.get(
+                           f"train/{metric}", []),
+                       "train_images_per_s": [s["train_images_per_s"] for s in exp.epoch_stats],
+                       "launches": launches[model]}
+    log("real: epoch | MCVAE BCE | CVAE BCE | VQ-VAE MSE")
+    for e in range(REAL_VAE_EPOCHS):
+        log(f"real: {e + 1} | " + " | ".join(
+            f"{runs[m]['by_epoch'][e]:.5f}" if e < len(runs[m]["by_epoch"]) else "-"
+            for m in ("mcvae", "cvae", "vqvae")))
+    log("real vae:", json.dumps({"card": name_limit, **runs}))
+    if bad:
+        raise SystemExit("real vae failed: " + "; ".join(bad))
+    return launches, runs
 
 
 def main() -> int:
@@ -943,10 +1476,13 @@ def main() -> int:
         for line in r["log"].splitlines():
             if "ptxas" in line and ("Used" in line or "spill" in line or "Compiling" in line):
                 log("  " + line.strip())
-        counts = sass_tensor_core_count(kname)
-        log(f"sass {kname}: tensor-core instructions {json.dumps(counts)}"
-            + (" (no cuobjdump)" if counts is None else ""))
-        if counts is not None and counts["HMMA"] + counts["HGMMA"] == 0:
+        sass = sass_tensor_core_count(kname)
+        log(f"sass {kname}: instructions {json.dumps(sass)}"
+            + (" (no cuobjdump)" if sass is None else ""))
+        # first_dblock is designed for the tensor cores; the VQ kernels run
+        # f32 on the CUDA cores (FFMA), by design
+        if kname in TENSOR_CORE_KERNELS and sass is not None \
+                and sass["HMMA"] + sass["HGMMA"] == 0:
             raise SystemExit(f"{kname}: no tensor-core instruction in its SASS")
 
     full = check_first_dblock((128, 128, 128, 3, 64), seed=0, timed=True)
@@ -962,6 +1498,25 @@ def main() -> int:
     check_first_dblock((5, 128, 128, 3, 64), seed=6, timed=False)  # items not a grid multiple
     check_first_dblock_grad((2, 16, 12, 3, 64), seed=7)
     check_first_dblock_grad((2, 8, 12, 1, 128), seed=8)
+    vq_d, vq_k = 64, 512  # the CIFAR10 VQ-VAE's codebook; 8x8 codes per image
+    vq_timers = []  # the kernels' device times are read after every timed phase
+    assign_train = check_vq_assign(128 * 64, vq_d, vq_k, seed=20, timers=vq_timers)
+    assign_eval = check_vq_assign(512 * 64, vq_d, vq_k, seed=21, timers=vq_timers)
+    check_vq_assign(17 * 64, vq_d, vq_k, seed=22)  # the digits' ragged batch
+    check_vq_assign(1, vq_d, vq_k, seed=23)
+    check_vq_assign(4096, vq_d, vq_k, seed=24, tie=True)
+    check_vq_assign(1000, 8, 16, seed=25)  # a tiny codebook: one ragged tile
+    # the main path's traffic: a train step's rows and codes, after as many
+    # steps as the timed VQ-VAE run takes
+    ema_step = check_vq_ema(128 * 64, vq_d, vq_k, seed=32, timers=vq_timers,
+                            inputs=vq_step_inputs(vqvae_cfg(), TRAIN_WARMUP + TRAIN_STEPS))
+    ema_spread = check_vq_ema(128 * 64, vq_d, vq_k, seed=26, timers=vq_timers)
+    ema_masked = check_vq_ema(128 * 64, vq_d, vq_k, seed=27, timers=vq_timers, weighted=True)
+    ema_collapsed = check_vq_ema(128 * 64, vq_d, vq_k, seed=31, timers=vq_timers,
+                                 collapsed=True)
+    check_vq_ema(17 * 64, vq_d, vq_k, seed=28)
+    check_vq_ema(1, vq_d, vq_k, seed=29)
+    check_vq_ema(3000, 8, 16, seed=30, weighted=True)
 
     serve_launches, _, g_then_d = run_slice(name_limit)
     torch.backends.cudnn.allow_tf32 = True  # torch's default, as the bench script runs
@@ -970,15 +1525,23 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     try:
         trainer_launches, _, profile_trainer = run_trainer(name_limit, work)
+        data_dir = os.path.join(work, "data")  # the CIFAR10-shaped files, reused
+        vae_launches, _ = run_vae(name_limit, data_dir, os.path.join(work, "vae"))
+        vqvae_launches, _, profile_vqvae = run_vqvae(name_limit, data_dir,
+                                                     os.path.join(work, "vqvae"))
         shutil.rmtree(work, ignore_errors=True)
         cgan_launches, _, profile_cgan = run_cgan(name_limit)
         real_launches, _, (base, out_dir) = run_real(name_limit, work)
         wf_launches, _ = run_workflows(name_limit, base, out_dir)
+        real_vae_launches, _ = run_real_vae(name_limit, base, out_dir)
         # last, so that no timed run follows a profiler session
         rec = profile_cgan(args.profile or os.path.join(work, "profile"))
         log("cgan profile:", json.dumps({k: rec[k] for k in (
             "window_ms", "device_busy_ms", "device_busy_share", "kernel_launches",
             "category_ms")}))
+        log("vqvae profile:", json.dumps(profile_vqvae(args.profile
+                                                       or os.path.join(work, "profile"))))
+        vq_device_times(vq_timers)
         if args.profile:
             log("profile:", json.dumps(profile_pass(g_then_d, args.profile)))
             log("train profile:", json.dumps(profile_train(args.profile)))
@@ -1002,11 +1565,37 @@ def main() -> int:
                              "cgan": cgan_launches["first_dblock"],
                              "real_mcgan": real_launches["mcgan"],
                              "real_cgan": real_launches["cgan"],
-                             "workflows": wf_launches["first_dblock"]},
+                             "workflows": wf_launches["first_dblock"],
+                             **{f"vae_{m}": c["first_dblock"] for m, c in vae_launches.items()},
+                             **{f"real_{m}": c["first_dblock"]
+                                for m, c in real_vae_launches.items()}},
         "other_shapes": [{k: r[k] for k in ("shape", "ms", "wrapper_ms", "bound_ms", "bound_by",
                                             "plain_ms", "library_ms", "max_abs_err")}
                          for r in (train_g, real_d, real_g, full, tail, cifar)],
     }]
+    vq_shapes = ("shape", "case", "ms", "wrapper_ms", "bound_ms", "bound_by", "plain_ms",
+                 "library_ms", "max_abs_err")
+    for kname, rec, others, library, replaces in (
+            ("vq_assign", assign_train, [assign_eval], "torch.addmm (|e|^2 - 2 x.e) + argmin",
+             "mcgm_tpu/ops/pallas_kernels.py:112 at 0303c43 (vq_assign; live XLA form "
+             "mcgm_tpu/ops/vq.py:56)"),
+            ("vq_ema", ema_step, [ema_spread, ema_masked, ema_collapsed],
+             "torch.bincount + index_add_ (the sums only)",
+             "mcgm_tpu/ops/vq.py:69 (the EMA update beside vq_assign, XLA)")):
+        kernels.append({
+            "name": kname, "route": "cuda", "source": f"mcgm_tpu_torch/csrc/{kname}.cu",
+            "replaces": replaces,
+            "launches": vqvae_launches["step"][kname], "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"], "library": library,
+            "shape": rec["shape"], "case": rec["case"], "wrapper_ms": rec["wrapper_ms"],
+            "roofline_share": rec["roofline_share"],
+            "launches_by_path": {"vqvae_step": vqvae_launches["step"][kname],
+                                 "vqvae_eval_batch": vqvae_launches["eval"][kname],
+                                 "vqvae_trainer": vqvae_launches["trainer"][kname],
+                                 "real_vqvae": real_vae_launches["vqvae"][kname],
+                                 **{f"vae_{m}": c[kname] for m, c in vae_launches.items()}},
+            "other_shapes": [{k: r[k] for k in vq_shapes} for r in others]})
     log(name_limit)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

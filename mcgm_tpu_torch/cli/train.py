@@ -1,7 +1,10 @@
-"""Training entry point of the port (GAN family so far):
+"""Training entry point of the port (mcgan, cgan, mcvae, cvae, vqvae and
+the classifier):
 
     python -m mcgm_tpu_torch.cli.train --data_name CIFAR10 --model_name mcgan \
         [--control_name 0.5] [--num_epochs N] [--resume_mode 1] [--device cpu]
+
+(``--control_name None`` for cgan, cvae, vqvae and the classifier.)
 
 It runs on the card unless ``--device cpu`` is given, and raises if there is
 no card. ``data_dir`` must hold ``CIFAR10/processed/{train,test}.npz`` or the

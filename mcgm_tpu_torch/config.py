@@ -3,7 +3,7 @@ the per-dataset shapes and derived hyperparameters.
 
 Port of ``mcgm_tpu/config.py`` (``load_config``, ``apply_control_name``,
 ``make_model_tag``, ``_DATA_SHAPES`` and ``process_control`` for the GAN
-family and the classifier). Shapes are NHWC ``(H, W, C)`` as in the JAX package. The defaults
+family, the VAE family, the VQ-VAE and the classifier). Shapes are NHWC ``(H, W, C)`` as in the JAX package. The defaults
 are the port's own ``config.yml``: the JAX package's keys less those of its
 TPU machinery (meshes, seed-parallel sweeps, dispatch groups, compile cache),
 with ``device: cuda``.
@@ -72,7 +72,8 @@ _DATA_SHAPES = {
 }
 
 _GAN_FAMILY = ("cgan", "mcgan")
-_PORTED = _GAN_FAMILY + ("classifier",)
+_VAE_FAMILY = ("cvae", "mcvae")
+_PORTED = _GAN_FAMILY + _VAE_FAMILY + ("vqvae", "classifier")
 
 
 def _batch_size(cfg: dict, res: int) -> None:
@@ -86,10 +87,12 @@ def process_control(cfg: dict) -> dict:
     model's hyperparameters from ``data_name`` / ``model_name``.
 
     ``Synthetic{K}`` / ``SyntheticGray{K}`` take the shape of their base and
-    the per-mode protocol of a dataset with that many modes. Only the GAN
-    family's and the classifier's hyperparameters are ported; other models
-    raise until their slice lands (ROADMAP Queue A). With ``derive_model_params=False`` a
-    caller-supplied ``gan`` dict is kept, as the tests do for tiny models.
+    the per-mode protocol of a dataset with that many modes. The GAN
+    family's, the VAE family's, the VQ-VAE's and the classifier's
+    hyperparameters are ported; other models raise until their slice lands
+    (ROADMAP Queue A). With ``derive_model_params=False`` a caller-supplied
+    ``gan`` / ``vae`` / ``vqvae`` dict is kept, as the tests do for tiny
+    models.
     """
     cfg = copy.deepcopy(cfg)
     if "controller_rate" in cfg.get("control", {}):
@@ -132,6 +135,13 @@ def process_control(cfg: dict) -> dict:
             "latent_size": 128,
             "generator_hidden_size": g_hidden,
             "discriminator_hidden_size": d_hidden,
+            "embedding_size": 32,
+        }
+    elif name in _VAE_FAMILY:
+        cfg["vae"] = {
+            "hidden_size": [64, 128, 256] if res == 32 else [64, 128, 256, 512, 512],
+            "latent_size": 128 if res == 32 else 256,
+            "num_res_block": 2,
             "embedding_size": 32,
         }
     cfg["classifier"] = {"hidden_size": [8, 16, 32, 64]}

@@ -17,7 +17,7 @@ import torch
 
 
 # ------------------------------------------------------------ elementwise
-def _bce(p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+def binary_cross_entropy(p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Elementwise BCE with torch-style clamping of the logs at -100."""
     logp = torch.clamp(torch.log(torch.clamp(p, min=1e-44)), min=-100.0)
     log1p = torch.clamp(torch.log(torch.clamp(1.0 - p, min=1e-44)), min=-100.0)
@@ -41,7 +41,7 @@ def mse(output, target) -> float:
 
 def bce(output, target) -> float:
     """BCE of [-1, 1] images mapped to [0, 1]."""
-    return float(_bce((output.float() + 1) / 2, (target.float() + 1) / 2).mean())
+    return float(binary_cross_entropy((output.float() + 1) / 2, (target.float() + 1) / 2).mean())
 
 
 def nll(logits, target) -> float:
@@ -154,8 +154,8 @@ def make_device_metrics(names):
             elif name == "MSE":
                 out[name] = weighted_mean((output["img"] - batch["img"]) ** 2, w)
             elif name == "BCE":
-                out[name] = weighted_mean(_bce((output["img"].float() + 1) / 2,
-                                               (batch["img"].float() + 1) / 2), w)
+                out[name] = weighted_mean(binary_cross_entropy(
+                    (output["img"].float() + 1) / 2, (batch["img"].float() + 1) / 2), w)
             elif name == "NLL":
                 logp = torch.log_softmax(output["logits"].float(), -1)
                 out[name] = weighted_mean(-logp.gather(-1, batch["img"].long()[..., None]), w)

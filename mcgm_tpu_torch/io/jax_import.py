@@ -1,17 +1,21 @@
 """Map the JAX package's flax variables onto the port's ``state_dict``, and
 back.
 
-Input: ``{"params", "batch_stats", "spectral", "codebook"}`` as nested dicts
-of numpy arrays, as ``mcgm_tpu`` checkpoints hold them under
+Input: ``{"params", "batch_stats", "spectral", "codebook", "vq_stats"}`` as
+nested dicts of numpy arrays, as ``mcgm_tpu`` checkpoints hold them under
 ``model_dict``. The port's modules carry the flax module names, so a
 variable's path maps to a key by rule:
 
 - a path component naming a residual block (``_MC...ResBlock_i``,
   ``_C...ResBlock_i``) sits under the owning ``blocks`` dict; BatchNorm's inner ``bn`` scope is dropped;
-- ``kernel`` -> ``weight``, HWIO -> OIHW for convs and ``[in,out]`` ->
+- ``kernel`` -> ``weight``, HWIO -> OIHW for convs, HWIO -> ``[in, out,
+  kh, kw]`` for transposed convs (modules named ``ConvTranspose_i``; the JAX
+  package flips its kernel where it applies it, so the transpose alone is
+  torch's weight) and ``[in,out]`` ->
   ``[out,in]`` for dense layers; BatchNorm ``scale`` -> ``weight``,
-  ``mean``/``var`` -> ``running_mean``/``running_var``; spectral ``u`` and
-  ``codebook`` keep their names.
+  ``mean``/``var`` -> ``running_mean``/``running_var``; spectral ``u``,
+  ``codebook`` and the quantizer's ``vq_stats`` (``embedding``,
+  ``cluster_size``, ``embedding_mean``) keep their names.
 
 The inverse, :func:`to_jax_gan_variables`, walks the port's modules, so a
 checkpoint the port writes holds the JAX package's variable tree and either
@@ -28,6 +32,7 @@ import torch
 from torch import nn
 
 from ..ops import layers
+from ..ops.vq import VectorQuantizerEMA
 
 _LEAF = {
     ("params", "kernel"): "weight",
@@ -37,7 +42,11 @@ _LEAF = {
     ("batch_stats", "var"): "running_var",
     ("spectral", "u"): "u",
     ("codebook", "codebook"): "codebook",
+    ("vq_stats", "embedding"): "embedding",
+    ("vq_stats", "cluster_size"): "cluster_size",
+    ("vq_stats", "embedding_mean"): "embedding_mean",
 }
+_COLLECTIONS = ("params", "batch_stats", "spectral", "codebook", "vq_stats")
 
 
 def _walk(tree, path=()):
@@ -62,7 +71,7 @@ def _key(parts, name: str) -> str:
 def from_jax_variables(variables) -> dict[str, torch.Tensor]:
     """A ``state_dict`` that makes the port compute the JAX model's function."""
     state = {}
-    for collection in ("params", "batch_stats", "spectral", "codebook"):
+    for collection in _COLLECTIONS:
         for path, arr in _walk(variables.get(collection, {})):
             *mod, leaf = path
             name = _LEAF.get((collection, leaf))
@@ -70,7 +79,7 @@ def from_jax_variables(variables) -> dict[str, torch.Tensor]:
                 raise KeyError(f"unknown variable {collection}/{'/'.join(path)}")
             a = np.asarray(arr, np.float32)
             if leaf == "kernel":
-                a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+                a = _kernel_from_jax(a, bool(mod) and mod[-1].startswith("ConvTranspose"))
             state[_key(mod, name)] = torch.from_numpy(np.array(a, np.float32, order="C"))
     return state
 
@@ -83,11 +92,19 @@ def from_jax_gan_train_state(g_params, d_params, state) -> dict[str, torch.Tenso
                                **state})
 
 
-def _kernel_to_jax(w: torch.Tensor) -> np.ndarray:
+def _kernel_from_jax(a: np.ndarray, transposed: bool) -> np.ndarray:
+    if a.ndim == 2:
+        return a.T
+    return a.transpose(2, 3, 0, 1) if transposed else a.transpose(3, 2, 0, 1)
+
+
+def _kernel_to_jax(w: torch.Tensor, transposed: bool = False) -> np.ndarray:
     # a copy, never a view: a transpose that numpy counts as contiguous (a
     # dimension of 1) would otherwise share the live parameter's storage
     a = w.detach().cpu().numpy()
-    return (a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T).copy()
+    if a.ndim == 2:
+        return a.T.copy()
+    return (a.transpose(2, 3, 0, 1) if transposed else a.transpose(2, 3, 1, 0)).copy()
 
 
 def _put(tree: dict, path, value) -> None:
@@ -105,7 +122,9 @@ def jax_leaves(module: nn.Module):
         bn = isinstance(mod, layers.BatchNorm)
         for leaf, t in list(mod.named_parameters(recurse=False)) + list(
                 mod.named_buffers(recurse=False)):
-            if bn:
+            if isinstance(mod, VectorQuantizerEMA):
+                coll, key = "vq_stats", leaf
+            elif bn:
                 coll, key = {"weight": ("params", "scale"), "bias": ("params", "bias"),
                              "running_mean": ("batch_stats", "mean"),
                              "running_var": ("batch_stats", "var")}[leaf]
@@ -118,14 +137,16 @@ def jax_leaves(module: nn.Module):
 
 def to_jax_gan_variables(module: nn.Module) -> dict:
     """The flax variables (nested dicts of f32 numpy arrays, collections
-    ``params`` / ``batch_stats`` / ``spectral`` / ``codebook``) of an MCGAN
-    or CGAN, or any model built from this package's layers: the JAX
+    ``params`` / ``batch_stats`` / ``spectral`` / ``codebook`` /
+    ``vq_stats``) of an MCGAN, CGAN, MCVAE, CVAE or VQ-VAE, or any model
+    built from this package's layers: the JAX
     package's layout, as its checkpoints hold it under ``model_dict``. The
     inverse of :func:`from_jax_variables`: loading the result back gives the
     same model exactly."""
     out: dict = {}
-    for _, path, t in jax_leaves(module):
-        value = (_kernel_to_jax(t) if path[-1] == "kernel"
+    transposed = {n for n, m in module.named_modules() if isinstance(m, layers.ConvTranspose)}
+    for key, path, t in jax_leaves(module):
+        value = (_kernel_to_jax(t, key.rpartition(".")[0] in transposed) if path[-1] == "kernel"
                  else t.detach().cpu().numpy().astype(np.float32))
         _put(out, path, value)
     return out

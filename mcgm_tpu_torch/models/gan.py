@@ -15,22 +15,11 @@ import torch
 from torch import nn
 
 from ..kernels.first_dblock import first_dblock, first_dblock_reference
-from ..ops.controller import MultimodalController, mode_code, one_hot
+from ..ops.controller import Seeds, mode_code, one_hot
 from ..ops.layers import (
     BatchNorm, Conv, ConvS2D, Dense, SNConv, SNConvPool, SNDense, UpsampledConv,
     add_upsampled_nearest, avg_pool, global_sum_pool,
 )
-
-
-class _Seeds:
-    """Draws one codebook seed per controller from the model's generator."""
-
-    def __init__(self, generator: torch.Generator):
-        self.generator = generator
-
-    def mc(self, features: int, num_mode: int, rate: float) -> MultimodalController:
-        seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=self.generator))
-        return MultimodalController(features, num_mode, rate, seed)
 
 
 class _MCGenResBlock(nn.Module):
@@ -42,7 +31,7 @@ class _MCGenResBlock(nn.Module):
     the port."""
 
     def __init__(self, input_size: int, output_size: int, num_mode: int,
-                 controller_rate: float, seeds: _Seeds, tail_bias_free: bool = False):
+                 controller_rate: float, seeds: Seeds, tail_bias_free: bool = False):
         super().__init__()
         g = seeds.generator
         self.mc_1 = seeds.mc(input_size, num_mode, controller_rate)
@@ -66,7 +55,7 @@ class _MCGenResBlock(nn.Module):
 
 class MCGenerator(nn.Module):
     def __init__(self, data_shape, latent_size: int, hidden_size, num_mode: int,
-                 controller_rate: float, seeds: _Seeds):
+                 controller_rate: float, seeds: Seeds):
         super().__init__()
         hs = tuple(hidden_size)
         g = seeds.generator
@@ -159,7 +148,7 @@ class _MCFirstDisResBlock(nn.Module):
     """
 
     def __init__(self, input_size: int, output_size: int, num_mode: int,
-                 controller_rate: float, seeds: _Seeds):
+                 controller_rate: float, seeds: Seeds):
         super().__init__()
         g = seeds.generator
         self.mc_1 = seeds.mc(output_size, num_mode, controller_rate)
@@ -188,7 +177,7 @@ class _MCDisResBlock(nn.Module):
     and the shortcut pools first (its MC gate and 1x1 conv commute)."""
 
     def __init__(self, input_size: int, output_size: int, num_mode: int,
-                 controller_rate: float, stride: int, seeds: _Seeds):
+                 controller_rate: float, stride: int, seeds: Seeds):
         super().__init__()
         g = seeds.generator
         self.stride = stride
@@ -217,7 +206,7 @@ class _MCDisResBlock(nn.Module):
 
 class MCDiscriminator(nn.Module):
     def __init__(self, data_shape, hidden_size, num_mode: int, controller_rate: float,
-                 cifar_style: bool, seeds: _Seeds):
+                 cifar_style: bool, seeds: Seeds):
         super().__init__()
         hs = tuple(hidden_size)
         n_tail = 2 if cifar_style else 1  # stride-1 tail blocks
@@ -319,7 +308,9 @@ class _GANBase(nn.Module):
     submodules, ``latent_size``, ``num_mode``, ``compute_dtype`` (the
     activation dtype: bf16 operands with f32 parameters on the card by
     default), and ``generate`` / ``discriminate`` on NHWC images with f32
-    outputs."""
+    outputs; a created sampler keeps only ``sampling_module``."""
+
+    sampling_module = "generator"
 
     def use_plain_kernels(self, plain: bool = True) -> "_GANBase":
         """Route every hand-written kernel's call to its plain PyTorch
@@ -362,7 +353,7 @@ class MCGAN(_GANBase):
         self.latent_size = latent_size
         self.num_mode = num_mode
         self.compute_dtype = compute_dtype
-        seeds = _Seeds(torch.Generator().manual_seed(seed))
+        seeds = Seeds(torch.Generator().manual_seed(seed))
         self.generator = MCGenerator(self.data_shape, latent_size, generator_hidden_size,
                                      num_mode, controller_rate, seeds)
         self.discriminator = MCDiscriminator(self.data_shape, discriminator_hidden_size,

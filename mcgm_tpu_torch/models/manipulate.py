@@ -1,4 +1,4 @@
-"""Mode creation and transition for the GAN family. Port of
+"""Mode creation and transition for the GAN and VAE families. Port of
 ``mcgm_tpu/models/manipulate.py`` (``create``, ``create_torch_compat``,
 ``transit``, ``transit_codebook``, ``transit_embedding``).
 
@@ -8,9 +8,10 @@ own tensors, so load the result into a copy, as ``Sampler.with_state``
 does). What changes:
 
 - every MultimodalController ``codebook`` (``[num_mode, C]``);
-- the class embeddings of CGAN: the bias-free ``embedding`` Dense of G and
-  ``SNDense`` of D, whose port weight is ``[emb, num_mode]`` (mode axis 1;
-  the JAX kernel is its transpose).
+- the class embeddings of CGAN and CVAE: the bias-free ``embedding`` Dense
+  of G (CVAE: of the encoder and of the decoder) and ``SNDense`` of D,
+  whose port weight is ``[emb, num_mode]`` (mode axis 1; the JAX kernel is
+  its transpose).
 
 ``create`` draws ``classes_size`` new modes: fresh codebooks, and Dirichlet
 convex mixes of the trained embedding rows; the caller rebuilds the model
@@ -61,13 +62,21 @@ def _nat(name: str) -> int:
     return int(m.group(1)) if m else -1
 
 
-def _ref_order_key(parts: tuple):
-    """The reference's ``named_modules`` order of a GAN's matched leaves
-    (``parts``: the path below the collection): G before D; in each, the
-    blocks in order (the first D-block first), ``mc_1`` before ``mc_2``,
-    then the trailing controller or embedding."""
-    top = {"generator": 0, "discriminator": 1}.get(parts[0], 9)
+def _ref_order_key(family: str, parts: tuple):
+    """The reference's ``named_modules`` order of a model's matched leaves
+    (``parts``: the path below the collection). GAN: G before D; in each,
+    the blocks in order (the first D-block first), ``mc_1`` before ``mc_2``,
+    then the trailing controller or embedding. VAE: encoder before decoder;
+    the encoder's controllers (or embedding), then its residual blocks; the
+    decoder's ``MultimodalController_0`` and ``_1``, its residual blocks,
+    then ``MultimodalController_2`` on."""
+    top = {"generator": 0, "discriminator": 1, "encoder": 0, "decoder": 1}.get(parts[0], 9)
     name = parts[1] if len(parts) > 1 else ""
+    if family == "vae":
+        if name.startswith("MCResBlock"):
+            return (top, 1, _nat(name), _nat(parts[2]))
+        i = _nat(name)
+        return (top, 2 if top == 1 and i >= 2 else 0, i, 0)
     if name.startswith("_MC") or name.startswith("_C"):
         blk = -1 if "First" in name else _nat(name)
         return (top, 0, blk, 0 if parts[2] == "mc_1" else 1)
@@ -97,18 +106,21 @@ def create_torch_compat(model: nn.Module, classes_size: int, seed: int,
     then codebooks and Dirichlet mixes drawn module by module. As in the
     reference, CGAN's D embedding consumes a draw and keeps its weight (its
     spectral norm recomputes the weight from the original)."""
-    if "gan" not in model_name:
+    family = "gan" if "gan" in model_name else "vae" if model_name in ("mcvae", "cvae") else None
+    if family is None:
         raise NotImplementedError(
-            f"create for {model_name!r}: only the GAN family is ported (ROADMAP Queue A)")
+            f"create for {model_name!r}: only the GAN and VAE families are ported "
+            "(ROADMAP Queue A)")
     g = torch.Generator().manual_seed(seed)
     state = dict(model.state_dict())
-    for key, path, axis, t in sorted(_matched(model), key=lambda m: _ref_order_key(m[1][1:])):
+    for key, path, axis, t in sorted(_matched(model),
+                                     key=lambda m: _ref_order_key(family, m[1][1:])):
         if axis is None:
             state[key] = torch.from_numpy(
                 _torch_create_codebook(g, classes_size, t.shape[-1])).to(t.device)
             continue
         mix = _torch_create_mix(g, classes_size, t.shape[axis])
-        if path[1] != "discriminator":
+        if path[1] != "discriminator":  # CGAN's D: a dead draw
             state[key] = _mix_rows(t, mix, axis)
     return state
 

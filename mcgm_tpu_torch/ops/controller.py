@@ -74,3 +74,15 @@ class MultimodalController(nn.Module):
 
     def forward(self, x: torch.Tensor, indicator: torch.Tensor) -> torch.Tensor:
         return mc_gate(x, indicator, self.codebook)
+
+
+class Seeds:
+    """Draws one codebook seed per controller from a model's generator, so
+    that one init seed gives every controller of the model its own masks."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+
+    def mc(self, features: int, num_mode: int, rate: float) -> MultimodalController:
+        seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=self.generator))
+        return MultimodalController(features, num_mode, rate, seed)

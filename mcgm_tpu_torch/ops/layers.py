@@ -1,4 +1,5 @@
-"""NN building blocks of the GAN path, ported from ``mcgm_tpu/ops/layers.py``.
+"""NN building blocks of the GAN and VAE paths, ported from
+``mcgm_tpu/ops/layers.py``.
 
 Activations inside the port are NCHW tensors (``torch.channels_last`` in
 memory where the input is). Parameters are f32 and are cast to the
@@ -8,8 +9,10 @@ with bf16 operands and f32 master weights, as the JAX package's
 math, not their TPU rewrites: ``UpsampledConv`` is conv3x3 of the nearest
 2x upsample, ``ConvS2D`` a plain conv3x3.
 
-Initializers follow the JAX package: xavier-uniform kernels, torch-uniform
-biases ``U(+-1/sqrt(fan_in))``, BatchNorm scale ~ N(1, 0.02) and bias 0.
+Initializers follow the JAX package: xavier-uniform kernels for the GAN
+family and torch-uniform kernels ``U(+-1/sqrt(fan_in))`` for the VAE family
+(``kernel_init``), torch-uniform biases, BatchNorm scale ~ N(1, 0.02) and
+bias 0.
 """
 
 from __future__ import annotations
@@ -41,7 +44,13 @@ def xavier_uniform(shape, fan_in: int, fan_out: int, generator=None) -> torch.Te
     return torch.empty(shape).uniform_(-bound, bound, generator=generator)
 
 
-def torch_bias(n: int, fan_in: int, generator=None) -> torch.Tensor:
+def torch_uniform(shape, fan_in: int, fan_out: int, generator=None) -> torch.Tensor:
+    """torch's default kernel init, ``U(+-1/sqrt(fan_in))`` (the JAX
+    package's ``torch_kernel_init``)."""
+    return torch_bias(shape, fan_in, generator)
+
+
+def torch_bias(n, fan_in: int, generator=None) -> torch.Tensor:
     bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
     return torch.empty(n).uniform_(-bound, bound, generator=generator)
 
@@ -91,11 +100,12 @@ class Conv(nn.Module):
     """2D conv with integer padding, xavier kernel, torch-uniform bias."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, stride: int = 1,
-                 padding: int = 0, bias: bool = True, generator=None):
+                 padding: int = 0, bias: bool = True, generator=None,
+                 kernel_init=xavier_uniform):
         super().__init__()
         k = kernel_size
         self.stride, self.padding = stride, padding
-        self.weight = nn.Parameter(xavier_uniform(
+        self.weight = nn.Parameter(kernel_init(
             (out_ch, in_ch, k, k), in_ch * k * k, out_ch * k * k, generator))
         self.bias = (nn.Parameter(torch_bias(out_ch, in_ch * k * k, generator))
                      if bias else None)
@@ -123,10 +133,33 @@ class ConvS2D(Conv):
         super().__init__(in_ch, out_ch, 3, 1, 1, True, generator)
 
 
-class Dense(nn.Module):
-    def __init__(self, in_f: int, out_f: int, bias: bool = True, generator=None):
+class ConvTranspose(nn.Module):
+    """torch ``ConvTranspose2d(k=4, s=2, p=1)``: output side ``(H-1)s - 2p + k``.
+
+    The weight is torch's ``[in, out, k, k]``; the JAX package stores the
+    kernel HWIO ``[k, k, in, out]`` and flips it for ``lax.conv_transpose``,
+    so the port's weight is that kernel transposed (2, 3, 0, 1), unflipped.
+    Kernel and bias take torch's uniform init over ``in * k * k``."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 4, stride: int = 2,
+                 padding: int = 1, generator=None):
         super().__init__()
-        self.weight = nn.Parameter(xavier_uniform((out_f, in_f), in_f, out_f, generator))
+        k = kernel_size
+        self.stride, self.padding = stride, padding
+        self.weight = nn.Parameter(torch_uniform((in_ch, out_ch, k, k), in_ch * k * k,
+                                                 out_ch * k * k, generator))
+        self.bias = nn.Parameter(torch_bias(out_ch, in_ch * k * k, generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), _bias(self.bias, x),
+                                  self.stride, self.padding)
+
+
+class Dense(nn.Module):
+    def __init__(self, in_f: int, out_f: int, bias: bool = True, generator=None,
+                 kernel_init=xavier_uniform):
+        super().__init__()
+        self.weight = nn.Parameter(kernel_init((out_f, in_f), in_f, out_f, generator))
         self.bias = nn.Parameter(torch_bias(out_f, in_f, generator)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

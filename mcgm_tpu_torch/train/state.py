@@ -50,17 +50,22 @@ LOSS_TYPES = ("Hinge", "BCE")
 
 @dataclass
 class TrainState:
-    """A single model, its optimizer and the count of steps taken."""
+    """A single model, its optimizer, the generator of the model's train-time
+    noise (the VAEs' reparameterisation; ``None`` for a model that draws
+    none) and the count of steps taken."""
 
     model: nn.Module
     opt: torch.optim.Optimizer
     step: int = 0
+    rng: torch.Generator | None = None
 
 
 def make_train_step(skip_nonfinite: bool = False):
-    """``step(ts, batch) -> {"loss", "output"[, "skipped"]}``: one update of
-    ``ts.model`` on ``batch``, in place, whose ``model(batch, train=True)``
-    returns a dict with ``loss``.
+    """``step(ts, batch, **inputs) -> {"loss", "output"[, "skipped"]}``: one
+    update of ``ts.model`` on ``batch``, in place, whose ``model(batch,
+    train=True, **inputs)`` returns a dict with ``loss``. ``ts.rng``, if
+    set, is passed as ``rng`` (the JAX step's ``rng_streams``); ``inputs``
+    may hand the model its noise instead (a VAE's ``eps``).
 
     ``skip_nonfinite``: when the gradients' global norm is not finite the
     whole update is dropped (parameters, optimizer state, the buffers the
@@ -68,10 +73,12 @@ def make_train_step(skip_nonfinite: bool = False):
     count still advances. Deciding it reads the norm on the host, one wait
     for the device per step; without the option the step never waits."""
 
-    def step(ts: TrainState, batch: dict) -> dict:
+    def step(ts: TrainState, batch: dict, **inputs) -> dict:
         model = ts.model
         saved = ([b.clone() for b in model.buffers()] if skip_nonfinite else None)
-        out = model(batch, train=True)
+        if ts.rng is not None:
+            inputs.setdefault("rng", ts.rng)
+        out = model(batch, train=True, **inputs)
         ts.opt.zero_grad(set_to_none=True)
         out["loss"].backward()
         aux = {"loss": out["loss"].detach(), "output": out}

@@ -1,5 +1,6 @@
-"""Sampling backend of the generate / transit / create workflows, GAN
-family. Port of ``mcgm_tpu/workflows/sampling.py``.
+"""Sampling backend of the generate / transit / create workflows, GAN and
+VAE families (a VQ-VAE cannot sample). Port of
+``mcgm_tpu/workflows/sampling.py``.
 
 Noise comes from an explicit ``torch.Generator``; JAX and torch streams
 differ, so parity tests hand both packages the same z.
@@ -31,8 +32,9 @@ class Sampler:
         """A sampler over a copy of the model holding ``state`` (a
         ``state_dict``, as ``models.manipulate`` returns): the counterpart of
         the JAX package's ``with_variables``. With another ``classes_size``
-        the model is rebuilt with that many modes and holds the generator
-        only: created modes are generated, never discriminated (and the
+        the model is rebuilt with that many modes and holds only its
+        ``sampling_module`` (a GAN's generator, a VAE's decoder): created
+        modes are generated, never discriminated or encoded (and the
         reference's torch stream leaves CGAN's D embedding at the trained
         mode count)."""
         cfg = self.cfg
@@ -43,12 +45,18 @@ class Sampler:
         cfg = dict(cfg, classes_size=classes_size)
         model = build_model(cfg, self.device)
         model.compute_dtype = self.model.compute_dtype
-        del model.discriminator
-        model.generator.load_state_dict(
-            {k[len("generator."):]: t for k, t in state.items() if k.startswith("generator.")})
+        keep = model.sampling_module
+        for name, _ in list(model.named_children()):
+            if name != keep:
+                delattr(model, name)
+        getattr(model, keep).load_state_dict(
+            {k[len(keep) + 1:]: t for k, t in state.items() if k.startswith(keep + ".")})
         return Sampler(cfg, model)
 
     def sample_z(self, n: int, generator: torch.Generator) -> torch.Tensor:
+        if not hasattr(self.model, "latent_size"):
+            raise ValueError(f"{self.cfg['model_name']} cannot sample: it decodes codes, "
+                             "not latents (its sampler is the PixelCNN's)")
         z = torch.randn((n, self.model.latent_size), generator=generator,
                         device=generator.device)
         return z.to(self.device)

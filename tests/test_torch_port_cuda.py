@@ -229,3 +229,109 @@ def test_trainer_epoch_on_the_card(dev, tmp_path):
     assert exp.loaders["train"].staged()[0].device.type == "cuda"
     assert all(torch.isfinite(torch.tensor(v)).all()
                for k, v in exp.logger.history.items() if k.startswith("train/"))
+
+
+# ------------------------------------------------------------- VQ kernels
+VQ_D, VQ_K = 64, 512  # the CIFAR10 VQ-VAE's codebook
+
+
+def _vq_inputs(dev, N, tie=False, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    flat = torch.randn((N, VQ_D), generator=g, device=dev)
+    if tie:  # every column twice, at shuffled places
+        half = torch.randn((VQ_D, VQ_K // 2), generator=g, device=dev)
+        emb = torch.cat([half, half], 1)[:, torch.randperm(VQ_K, generator=g, device=dev)]
+    else:
+        emb = torch.randn((VQ_D, VQ_K), generator=g, device=dev)
+    return flat, emb.contiguous()
+
+
+@pytest.mark.parametrize("N,tie", [(128 * 64, False), (17 * 64, False), (4096, True)])
+def test_vq_assign_matches_plain(dev, N, tie):
+    """Codes equal to the plain version's wherever the best two codes are
+    further apart than ``1e-5 * (|x|^2 + max|e|^2)`` (f32 sums in another
+    order), the chosen code within that margin of the least everywhere, q
+    the chosen columns; ties go to the lower code."""
+    from mcgm_tpu_torch.kernels import vq as kvq
+
+    flat, emb = _vq_inputs(dev, N, tie)
+    before = kvq.vq_assign.launches
+    code, q = kvq.vq_assign(flat, emb)
+    assert kvq.vq_assign.launches == before + 1
+    ref, _ = kvq.vq_assign_reference(flat, emb)
+    d = ((flat.double() ** 2).sum(1, keepdim=True) - 2 * flat.double() @ emb.double()
+         + (emb.double() ** 2).sum(0, keepdim=True))
+    top2 = d.topk(2, dim=1, largest=False).values
+    margin = 1e-5 * ((flat.double() ** 2).sum(1) + (emb.double() ** 2).sum(0).max())
+    clear = top2[:, 1] - top2[:, 0] > margin
+    assert torch.equal(code[clear], ref[clear])
+    assert (d.gather(1, code.long()[:, None])[:, 0] - top2[:, 0] <= margin).all()
+    assert torch.equal(q, emb.t()[code.long()])
+    if tie:
+        lowest = (emb.t()[:, None, :] == emb.t()[None, :, :]).all(-1).int().argmax(1)
+        assert torch.equal(code.long(), lowest[code.long()])
+
+
+@pytest.mark.parametrize("weighted,collapsed", [(False, False), (True, False), (False, True)])
+def test_vq_ema_matches_plain(dev, weighted, collapsed):
+    """The buffers after one update: cluster sizes bit-equal (exact counts,
+    the plain version's rounding), the mean and the codebook within
+    ``1e-5 * max|plain|`` (sums of rows in another order); also with every
+    row on one of three codes."""
+    from mcgm_tpu_torch.kernels import vq as kvq
+
+    flat, emb = _vq_inputs(dev, 128 * 64, seed=1)
+    code, _ = kvq.vq_assign(flat, emb)
+    if collapsed:
+        code = torch.tensor([5, 6, VQ_K - 1], device=dev, dtype=torch.int32)[code % 3]
+    cs = torch.rand(VQ_K, device=dev) * 2 + 1
+    w = (torch.rand(len(flat), device=dev) < 0.75).float() if weighted else None
+    got = [cs.clone(), (emb * cs).contiguous(), emb.clone()]
+    want = [t.clone() for t in got]
+    before = kvq.vq_ema.launches
+    kvq.vq_ema(flat, code, w, *got, 0.99, 1e-5)
+    assert kvq.vq_ema.launches == before + 1
+    kvq.vq_ema_reference(flat, code, w, *want, 0.99, 1e-5)
+    assert torch.equal(got[0], want[0])
+    for g, t in zip(got[1:], want[1:]):
+        assert (g - t).abs().max() <= 1e-5 * t.abs().max()
+
+
+def test_vqvae_step_kernel_path_matches_plain(dev):
+    """One full-width CIFAR10 VQ-VAE step (B=128) from the same state through
+    the kernels (one search, one EMA update) and through the plain versions:
+    the loss within ``1e-2 * |plain|``, at least 99 % of the codes equal, and
+    the three buffers within ``1e-2`` of each code's column of the plain
+    ones (``max_d |kernel - plain| / max_d |plain|``), leaving out the codes
+    that a row went to on one path only. After this first update an unused
+    code's column is ~1/eps times a used one's, so one bound for the whole
+    buffer would pass any error in the used codes."""
+    from mcgm_tpu_torch.config import process_control
+    from mcgm_tpu_torch.kernels import vq as kvq
+    from mcgm_tpu_torch.models import build_model
+    from mcgm_tpu_torch.train.optim import make_optimizer
+    from mcgm_tpu_torch.train.state import TrainState, make_train_step
+
+    cfg = process_control({"data_name": "CIFAR10", "model_name": "vqvae", "ae_name": "vqvae"})
+    img = torch.rand((128, 32, 32, 3), generator=torch.Generator(device=dev).manual_seed(0),
+                     device=dev) * 2 - 1
+    outs = {}
+    for plain in (False, True):
+        model = build_model(cfg, dev).use_plain_kernels(plain)
+        ts = TrainState(model, make_optimizer(model.parameters(), {
+            "optimizer_name": "Adam", "lr": 3e-4, "weight_decay": 0}, grad_clip=1.0))
+        before = (kvq.vq_assign.launches, kvq.vq_ema.launches)
+        out = make_train_step()(ts, {"img": img})
+        launched = (kvq.vq_assign.launches - before[0], kvq.vq_ema.launches - before[1])
+        assert launched == ((0, 0) if plain else (1, 1))
+        outs[plain] = (out, model.quantizer)
+    (k, qk), (p, qp) = outs[False], outs[True]
+    assert abs(float(k["loss"]) - float(p["loss"])) <= 1e-2 * abs(float(p["loss"]))
+    code_k, code_p = k["output"]["code"].reshape(-1), p["output"]["code"].reshape(-1)
+    assert (code_k == code_p).float().mean() >= 0.99
+    keep = torch.ones(VQ_K, dtype=torch.bool, device=dev)
+    keep[code_k[code_k != code_p].long()] = False
+    keep[code_p[code_k != code_p].long()] = False
+    for name in ("cluster_size", "embedding_mean", "embedding"):
+        a, b = (getattr(q, name).reshape(-1, VQ_K)[:, keep] for q in (qk, qp))
+        assert ((a - b).abs().amax(0) <= 1e-2 * b.abs().amax(0)).all(), name

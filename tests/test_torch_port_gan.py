@@ -207,7 +207,7 @@ def test_process_control_128px_mcgan():
     assert cfg["gan"]["discriminator_hidden_size"] == [64, 128, 256, 512, 1024]
     assert cfg["gan"]["latent_size"] == 128
     with pytest.raises(NotImplementedError, match="Queue A"):
-        process_control({"data_name": "CIFAR10", "model_name": "mcvae"})
+        process_control({"data_name": "CIFAR10", "model_name": "mcglow"})
 
 
 def test_build_model_defaults_to_cuda():

@@ -20,7 +20,8 @@ from mcgm_tpu.ops import controller as jc
 from mcgm_tpu.ops import layers as jl
 from mcgm_tpu_torch.io.jax_import import from_jax_variables
 from mcgm_tpu_torch.kernels import first_dblock as fd
-from mcgm_tpu_torch.models.gan import _MCFirstDisResBlock, _Seeds
+from mcgm_tpu_torch.models.gan import _MCFirstDisResBlock
+from mcgm_tpu_torch.ops.controller import Seeds
 from mcgm_tpu_torch.ops import controller as pc
 from mcgm_tpu_torch.ops import layers as pl
 from mcgm_tpu_torch.utils import resolve_device
@@ -319,7 +320,7 @@ def first_block_case():
 
 def test_first_block_module_matches_jax(first_block_case):
     x, ind, v, want = first_block_case
-    port = carry(_MCFirstDisResBlock(3, 8, 4, 0.5, _Seeds(torch.Generator())), v)
+    port = carry(_MCFirstDisResBlock(3, 8, 4, 0.5, Seeds(torch.Generator())), v)
     before = fd.first_dblock.launches
     with torch.no_grad():
         got = port(nchw(x), torch.from_numpy(ind), False)
@@ -406,7 +407,7 @@ def test_first_block_gradient_matches_jax_grad(first_block_case):
         return jnp.sum(y * ct)
 
     gp, gx = jax.grad(loss, argnums=(0, 1))(v["params"], jnp.asarray(x))
-    port = carry(_MCFirstDisResBlock(3, 8, 4, 0.5, _Seeds(torch.Generator())), v)
+    port = carry(_MCFirstDisResBlock(3, 8, 4, 0.5, Seeds(torch.Generator())), v)
     xt = nchw(x).requires_grad_(True)
     (port(xt, torch.from_numpy(ind), False) * nchw(ct)).sum().backward()
     pairs = [(xt.grad.permute(0, 2, 3, 1), gx)]

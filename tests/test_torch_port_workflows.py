@@ -71,9 +71,14 @@ GAN_CFG = {"latent_size": 8, "generator_hidden_size": [8, 8],
 
 @pytest.fixture(scope="module", autouse=True)
 def _torch_threads():
-    """Two torch threads: the tests run beside other workers."""
+    """One torch thread: every image of a chunk goes through the same code
+    path in one fixed order. With two, about one process in ten (measured
+    with XLA held to one thread, which crowds the main thread) computed the
+    first half of the first chunk on another path of the CPU convolutions,
+    4.97e-5 off on the [-1, 1] image, against 4.5e-7 everywhere else; the
+    JAX side came out bit-equal in every setting."""
     old = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(old)
 
