@@ -98,9 +98,32 @@ Phases, each of which exits non-zero on failure:
 13. real (continued): MCVAE, CVAE and VQ-VAE on the real digits at the
     MNIST configuration's width, ``REAL_VAE_EPOCHS`` epochs each, BCE / MSE
     per epoch.
+14. mc_gated_matmul (after the VQ kernels' checks): the PixelCNN's gated
+    1x1 product against its plain version at the sampler's shapes (1,000
+    grids at one position: the head, N = 512 with ReLU, and the residual,
+    N = 128) and an eval batch's (512 grids x 64 positions), all four timed
+    (device time from ``torch.profiler`` at the end, the wrapper, the plain
+    version, the cuBLAS yardstick, the bound); the digits' ragged batch,
+    M = 1, a soft indicator, the Pallas form, no gate, f32 operands and 100
+    modes checked; its gradient against the plain version's autograd;
+15. pixelcnn (before ``vqvae:``'s folder is removed): MCPixelCNN and
+    CPixelCNN at full width (15 layers, hidden 128, 512 codes, 10 modes,
+    B=128) on the codes of ``vqvae:``'s ``_best``, through ``cli.train``: 2
+    epochs of ``PIXELCNN_STEPS`` steps, ``resume_mode=1`` to epoch 3 with
+    the state checked equal, ``cli.test_model``; one eval batch of 512 (16
+    launches); a sampler chunk of 1,000 grids incrementally through the
+    kernel (1,024 launches), through its plain version and by full
+    re-forward, grids/s each; in f32 the two samplers' codes equal on 16
+    grids (a code may differ only where the draw's top two are within
+    ``EXACT_MARGIN``), in bf16 the sampler's logits within ``SLICE_TOL`` of
+    an f32 forward; the five ``cli.sample`` calls; one chunk under
+    ``torch.profiler`` at the very end (``pixelcnn profile:``);
+16. real (continued): MCPixelCNN and CPixelCNN on the codes of the real
+    digits' VQ-VAE, ``REAL_PIXELCNN_EPOCHS`` epochs each, NLL per epoch side
+    by side, one ``generate`` grid each.
 
-The last three lines are the card's name and power limit as ``nvidia-smi``
-gives them, one JSON object listing every kernel, and
+The last lines are the script's wall time, the card's name and power limit
+as ``nvidia-smi`` gives them, one JSON object listing every kernel, and
 ``{"ok": true, "device": {...}}``. With ``--profile DIR`` one more G->D pass,
 one more train step, one more trainer epoch and one chunk of its eval sweep
 run under ``torch.profiler`` after the checks. There
@@ -138,8 +161,10 @@ from mcgm_tpu_torch.io.images import read_png
 from mcgm_tpu_torch.io.jax_import import to_jax_inception
 from mcgm_tpu_torch.kernels import build
 from mcgm_tpu_torch.kernels import first_dblock as fd
+from mcgm_tpu_torch.kernels import mc_gate as kmc
 from mcgm_tpu_torch.kernels import vq as kvq
 from mcgm_tpu_torch.models import build_model
+from mcgm_tpu_torch.models.pixelcnn import sample_codes, sample_codes_incremental
 from mcgm_tpu_torch.ops.layers import fold_pool
 from mcgm_tpu_torch.report.logger import Logger
 from mcgm_tpu_torch.train.optim import make_optimizer
@@ -158,7 +183,7 @@ TRAIN_TOL = 5e-2   # kernel path vs plain path, one train step: losses, first D 
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 NUM_MODE = 20
 DEV = torch.device("cuda")
-TENSOR_CORE_KERNELS = ("first_dblock",)
+TENSOR_CORE_KERNELS = ("first_dblock", "mc_gated_matmul")
 INCEPTION_TOL = 1e-3  # max|card - cpu| <= INCEPTION_TOL * max|cpu|, both f32
 TRAINER_STEPS, TRAINER_EPOCHS = 20, 2
 TRAINER_IMAGES = {"train": 50_000, "test": 10_000}  # CIFAR10's splits
@@ -178,6 +203,18 @@ VQ_MARGIN, EMA_TOL = 1e-5, 1e-5
 # where two are closer than the margin)
 VQ_STEP_TOL, VQ_CODES_EQUAL = 1e-2, 0.99
 VAE_STEPS, REAL_VAE_EPOCHS = 20, 10
+# mc_gated_matmul with f32 operands against its plain version: f32 sums in
+# another order (bf16 operands: KERNEL_TOL)
+MC_TOL_F32 = 1e-5
+# the PixelCNN's sampler chunk, and the f32 exactness check on the card: the
+# incremental sampler and sample_codes may differ only at a position whose
+# two best values of logits + Gumbel are closer than EXACT_MARGIN (the two
+# compute the same logits with f32 sums in other orders)
+SAMPLE_CHUNK, EXACT_GRIDS, EXACT_MARGIN = 1000, 16, 1e-3
+# the PixelCNN trainer on the CIFAR10-shaped files: its eval cut to the
+# first PIXELCNN_EVAL_BATCHES batches of the train split (the whole split is
+# 391 batches of ~25 ms of host time each)
+PIXELCNN_STEPS, PIXELCNN_EVAL_BATCHES, REAL_PIXELCNN_EPOCHS = 20, 40, 10
 
 
 def log(*args):
@@ -348,6 +385,8 @@ def kernel_category(name: str) -> str:
         return "first_dblock (hand kernel)"
     if "vq_assign_kernel" in name or "vq_ema_kernel" in name:
         return "vq_assign / vq_ema (hand kernels)"
+    if "mc_gated_matmul_kernel" in name:
+        return "mc_gated_matmul (hand kernel)"
     if any(k in name for k in ("xmma", "cudnn", "dgrad", "wgrad", "convolve", "winograd")):
         return "conv (cuDNN)"
     if any(k in name for k in ("gemv", "gemm", "nvjet", "cublas", "dot_kernel", "cutlass")):
@@ -987,7 +1026,7 @@ def check_vq_assign(N, D, K, seed, timers: list | None = None, tie: bool = False
     codes are further apart than the margin, the chosen code's distance
     within the margin of the least everywhere, q the chosen columns; with
     ``tie``, every code the lower of its two copies. With ``timers``, timed
-    (see :func:`time_vq`)."""
+    (see :func:`time_kernel`)."""
     flat, emb = vq_inputs(N, D, K, seed, tie)
     code, q = kvq.vq_assign(flat, emb)
     code_r, _ = kvq.vq_assign_reference(flat, emb)
@@ -1020,7 +1059,7 @@ def check_vq_assign(N, D, K, seed, timers: list | None = None, tie: bool = False
     if timers is not None:
         esq = (emb ** 2).sum(0, keepdim=True)
         rec["bound_ms"], rec["bound_by"] = vq_assign_bound(N, D, K)
-        time_vq(rec, "vq_assign", lambda: kvq.vq_assign(flat, emb),
+        time_kernel(rec, "vq_assign", lambda: kvq.vq_assign(flat, emb),
                 lambda: kvq.vq_assign_reference(flat, emb),
                 lambda: torch.addmm(esq, flat, emb, alpha=-2).argmin(1), timers)
     log("vq_assign", json.dumps(rec))
@@ -1075,7 +1114,7 @@ def check_vq_ema(N, D, K, seed, timers: list | None = None, weighted: bool = Fal
     Random rows and codebook, the codes from ``vq_assign`` (spread) or with
     ``collapsed`` every row on one of three codes, cluster sizes in [1, 3];
     or ``inputs = (flat, code, buffers)``, as :func:`vq_step_inputs` gives
-    them. With ``timers``, timed (see :func:`time_vq`)."""
+    them. With ``timers``, timed (see :func:`time_kernel`)."""
     if inputs is not None:
         flat, code, bufs = inputs
         if (*flat.shape, bufs["cluster_size"].shape[0]) != (N, D, K):
@@ -1113,7 +1152,7 @@ def check_vq_ema(N, D, K, seed, timers: list | None = None, weighted: bool = Fal
         # the update runs again and again on one copy: the same work each time
         rec["bound_ms"], rec["bound_by"] = vq_ema_bound(N, D, K, weighted)
         code64 = code.long()
-        time_vq(rec, "vq_ema", lambda: kvq.vq_ema(flat, code, w, *got.values(), 0.99, 1e-5),
+        time_kernel(rec, "vq_ema", lambda: kvq.vq_ema(flat, code, w, *got.values(), 0.99, 1e-5),
                 lambda: kvq.vq_ema_reference(flat, code, w, *want.values(), 0.99, 1e-5),
                 lambda: (torch.bincount(code64, minlength=K), torch.zeros(
                     (K, D), device=DEV).index_add_(0, code64, flat)), timers)
@@ -1124,11 +1163,11 @@ def check_vq_ema(N, D, K, seed, timers: list | None = None, weighted: bool = Fal
     return rec
 
 
-def time_vq(rec, kname, kernel, plain, library, timers: list) -> None:
+def time_kernel(rec, kname, kernel, plain, library, timers: list) -> None:
     """CUDA-event times of back-to-back calls of the wrapper, the plain
     version and the PyTorch yardstick (``wrapper_ms``, ``plain_ms``,
     ``library_ms``: what a caller waits for, host included). The kernel's
-    own device time, ``ms``, is read later by :func:`vq_device_times`,
+    own device time, ``ms``, is read later by :func:`kernel_device_times`,
     after every timed phase, from ``kernel`` queued in ``timers``."""
     rec["wrapper_ms"] = cuda_ms(kernel, 50)
     rec["plain_ms"] = cuda_ms(plain, 50)
@@ -1136,8 +1175,8 @@ def time_vq(rec, kname, kernel, plain, library, timers: list) -> None:
     timers.append((rec, kname, kernel))
 
 
-def vq_device_times(timers: list, reps: int = 20) -> None:
-    """For each record queued by :func:`time_vq`, ``reps`` calls of the
+def kernel_device_times(timers: list, reps: int = 20) -> None:
+    """For each record queued by :func:`time_kernel`, ``reps`` calls of the
     wrapper under ``torch.profiler``: ``ms`` is the mean device time of one
     launch of the kernel itself (the wrapper's copies and the host left
     out) and ``roofline_share`` its bound over it. After every timed phase,
@@ -1170,10 +1209,12 @@ def vq_launches() -> dict:
 def zero_counts() -> None:
     """Every kernel's count to 0, just before a path is driven."""
     fd.first_dblock.launches = kvq.vq_assign.launches = kvq.vq_ema.launches = 0
+    kmc.mc_gated_matmul.launches = 0
 
 
 def counts() -> dict:
-    return {"first_dblock": fd.first_dblock.launches, **vq_launches()}
+    return {"first_dblock": fd.first_dblock.launches, **vq_launches(),
+            "mc_gated_matmul": kmc.mc_gated_matmul.launches}
 
 
 # ------------------------------------------------------------------ VAE
@@ -1429,8 +1470,9 @@ def run_real_vae(name_limit: str, base: list, out_dir: str):
         steps = sum(s["train_steps"] for s in exp.epoch_stats)
         evals = sum(-(-s["eval_images"] // exp.cfg["batch_size"]["train"])
                     for s in exp.epoch_stats)
-        want = ({"first_dblock": 0, "vq_assign": steps + evals, "vq_ema": steps}
-                if model == "vqvae" else {"first_dblock": 0, "vq_assign": 0, "vq_ema": 0})
+        want = ({"first_dblock": 0, "vq_assign": steps + evals, "vq_ema": steps,
+                 "mc_gated_matmul": 0} if model == "vqvae"
+                else {"first_dblock": 0, "vq_assign": 0, "vq_ema": 0, "mc_gated_matmul": 0})
         if launches[model] != want:
             bad.append(f"{model}: launches {launches[model]}, want {want}")
         hist = exp.logger.history.get(f"test/{metric}", [])
@@ -1452,11 +1494,391 @@ def run_real_vae(name_limit: str, base: list, out_dir: str):
     return launches, runs
 
 
+# ------------------------------------------------------------- PixelCNN
+def mc_gated_matmul_bound(B, P, K, N, modes, esize=2, gate=True, affine=True):
+    """Least time of one call: ``x`` and ``w`` read, ``out`` written (in the
+    operands' dtype), alpha / beta and the indicator / codebook read (f32);
+    ``2 M N K`` operations at the bf16 tensor-core or the f32 peak."""
+    M = B * P
+    flop = 2 * M * N * K
+    nbytes = (esize * (M * K + N * K + M * N) + (8 * N if affine else 0)
+              + (4 * (B * modes + modes * N) if gate else 0))
+    t_ops = flop / (PEAK_BF16_FLOPS if esize == 2 else PEAK_F32_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def mc_inputs(B, K, N, P, modes, dtype, seed, soft=False):
+    """``x [B, K(, P)]`` ~ N(0, 1), ``w [N, K]`` ~ N(0, 1/K), BatchNorm-like
+    alpha in [0.5, 1.5] and beta ~ N(0, 0.1), a binary codebook and one-hot
+    rows (``soft``: each a softmax over the modes, as transit mixes them)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    x = torch.randn((B, K) if P == 1 else (B, K, P), generator=g, device=DEV).to(dtype)
+    w = (torch.randn((N, K), generator=g, device=DEV) / math.sqrt(K)).to(dtype)
+    alpha = torch.rand(N, generator=g, device=DEV) + 0.5
+    beta = torch.randn(N, generator=g, device=DEV) * 0.1
+    cb = (torch.rand((modes, N), generator=g, device=DEV) < 0.5).float()
+    if soft:
+        ind = torch.softmax(torch.randn((B, modes), generator=g, device=DEV), -1)
+    else:
+        ind = F.one_hot(torch.arange(B, device=DEV) % modes, modes).float()
+    return x, w, alpha, beta, ind.contiguous(), cb
+
+
+def check_mc_gated_matmul(B, K, N, P, relu, seed, case, timers=None, modes=10,
+                          dtype=torch.bfloat16, gate=True, affine=True, soft=False):
+    """The kernel against its plain version on the same inputs: within
+    ``KERNEL_TOL * max|plain|`` with bf16 operands (both round f32 sums to
+    bf16 once), ``MC_TOL_F32 * max|plain|`` with f32 ones. With ``timers``,
+    timed beside the plain version, the cuBLAS yardstick and the bound."""
+    x, w, alpha, beta, ind, cb = mc_inputs(B, K, N, P, modes, dtype, seed, soft)
+    if not affine:
+        alpha = beta = None
+    if not gate:
+        ind = cb = None
+    args = (x, w, alpha, beta, ind, cb, relu)
+    got = kmc.mc_gated_matmul(*args)
+    want = kmc.mc_gated_matmul_reference(*args)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    tol = KERNEL_TOL if dtype == torch.bfloat16 else MC_TOL_F32
+    rec = {"shape": [B * P, K, N], "B": B, "P": P, "case": case,
+           "dtype": str(dtype).replace("torch.", ""), "relu": relu, "gate": gate,
+           "affine": affine, "soft_indicator": soft, "max_abs_err": err,
+           "max_abs_plain": scale, "tol": tol * scale}
+    if timers is not None:
+        esize = 2 if dtype == torch.bfloat16 else 4
+        rec["bound_ms"], rec["bound_by"] = mc_gated_matmul_bound(B, P, K, N, modes, esize,
+                                                                gate, affine)
+        # the yardstick: cuBLAS with BatchNorm folded into its weight and
+        # bias, then the ReLU and the mask (their inputs made beforehand)
+        ws = (w.float() * alpha[:, None]).to(dtype) if affine else w
+        bias = (beta if affine else torch.zeros(N, device=DEV)).to(dtype)
+        code = (ind @ cb).to(dtype) if gate else None
+
+        def library():
+            y = (torch.addmm(bias, x, ws.t()) if P == 1
+                 else torch.baddbmm(bias[None, :, None], ws.expand(B, N, K), x))
+            if relu:
+                y = y.relu_()
+            return y if code is None else y.mul_(code if P == 1 else code[:, :, None])
+
+        time_kernel(rec, kmc.KERNEL, lambda: kmc.mc_gated_matmul(*args),
+                    lambda: kmc.mc_gated_matmul_reference(*args), library, timers)
+    log("mc_gated_matmul", json.dumps(rec))
+    if not (torch.isfinite(got.float()).all() and err <= tol * scale):
+        raise SystemExit(f"mc_gated_matmul disagrees with its plain version ({case}): "
+                         f"{json.dumps(rec)}")
+    return rec
+
+
+def check_mc_gated_matmul_grad(seed):
+    """The Pallas form (no affine, no ReLU, a soft indicator), f32: the
+    autograd Function's gradients (its backward is the JAX VJP, as plain
+    products) against the plain version's autograd, within ``1e-4 * max``."""
+    x, w, _, _, ind, cb = mc_inputs(300, 128, 128, 1, 10, torch.float32, seed, soft=True)
+    grads = []
+    for fn in (kmc.mc_gated_matmul, kmc.mc_gated_matmul_reference):
+        xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+        (fn(xs, ws, None, None, ind, cb) ** 2).sum().backward()
+        grads.append((xs.grad, ws.grad))
+    torch.cuda.synchronize()
+    rec = {name: {"max_abs_err": (a - b).abs().max().item(), "max_abs": b.abs().max().item()}
+           for name, a, b in zip(("dx", "dw"), grads[0], grads[1])}
+    log("mc_gated_matmul grad:", json.dumps(rec))
+    if any(not r["max_abs_err"] <= 1e-4 * r["max_abs"] for r in rec.values()):
+        raise SystemExit(f"mc_gated_matmul's gradient disagrees: {json.dumps(rec)}")
+
+
+def check_mc_gated_matmul_all(timers: list) -> tuple[dict, list]:
+    """Every case of the PixelCNN's calls; the four timed shapes are the
+    sampler's per-position head and residual (M = 1,000 grids) and an eval
+    batch's (M = 512 grids x 64 positions). Returns the headline record
+    (the sampler's head) and the other timed ones."""
+    head = check_mc_gated_matmul(SAMPLE_CHUNK, 128, 512, 1, True, 40, "sampler head, one "
+                                 "position", timers)
+    others = [
+        check_mc_gated_matmul(SAMPLE_CHUNK, 128, 128, 1, False, 41, "sampler residual, one "
+                              "position", timers),
+        check_mc_gated_matmul(512, 128, 512, 64, True, 42, "eval batch head", timers),
+        check_mc_gated_matmul(512, 128, 128, 64, False, 43, "eval batch residual", timers)]
+    check_mc_gated_matmul(17, 128, 512, 64, True, 44, "the digits' ragged eval batch")
+    check_mc_gated_matmul(17, 128, 128, 64, False, 45, "the digits' ragged eval batch")
+    check_mc_gated_matmul(1, 128, 512, 1, True, 46, "M = 1")
+    check_mc_gated_matmul(10, 128, 128, 1, False, 47, "a soft row-mixed indicator (transit)",
+                          soft=True)
+    check_mc_gated_matmul(SAMPLE_CHUNK, 128, 512, 1, False, 48, "the Pallas form: "
+                          "(x @ w) * (indicator @ codebook)", affine=False)
+    check_mc_gated_matmul(48, 64, 200, 1, False, 49, "the Pallas form, ragged tiles",
+                          affine=False)
+    check_mc_gated_matmul(SAMPLE_CHUNK, 128, 512, 1, True, 50, "indicator=None (CPixelCNN)",
+                          gate=False)
+    check_mc_gated_matmul(EXACT_GRIDS, 128, 512, 64, True, 51, "f32 operands",
+                          dtype=torch.float32)
+    check_mc_gated_matmul(SAMPLE_CHUNK, 128, 128, 1, False, 52, "f32 operands",
+                          dtype=torch.float32)
+    check_mc_gated_matmul(100, 128, 512, 1, True, 53, "100 created modes", modes=100)
+    check_mc_gated_matmul_grad(54)
+    return head, others
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+@contextlib.contextmanager
+def _f32_convs():
+    """cuDNN in full f32 (no TF32) inside the block, as the plain references
+    are run."""
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
+def pixelcnn_exactness(model, grid, bad) -> dict:
+    """On the card, f32: ``sample_codes_incremental`` and ``sample_codes``
+    from one generator on ``EXACT_GRIDS`` grids must give equal codes but
+    where the two best values of logits + Gumbel at a grid's first differing
+    position are closer than ``EXACT_MARGIN``. bf16 (the model as it runs):
+    the incremental sampler's per-position logits against a full f32
+    forward on the codes it drew, within ``SLICE_TOL * max|f32|``."""
+    m32 = copy.deepcopy(model)
+    m32.compute_dtype = torch.float32
+    C = np.arange(EXACT_GRIDS) % model.num_mode
+    g = torch.Generator(device=DEV)
+    H, W = grid
+    with _f32_convs(), torch.no_grad():
+        inc, logits = sample_codes_incremental(m32, C, g.manual_seed(2), grid, return_logits=True)
+        full = sample_codes(m32, C, g.manual_seed(2), grid)
+        g.manual_seed(2)  # the uniforms of each position, drawn again in the same order
+        u = torch.stack([torch.rand((EXACT_GRIDS, model.input_size), generator=g, device=DEV)
+                         for _ in range(H * W)])
+        differ = []
+        for b in range(EXACT_GRIDS):
+            ne = (inc[b] != full[b]).reshape(-1).nonzero()
+            if len(ne):
+                t = int(ne[0])
+                i, j = divmod(t, W)
+                z = logits[b, i, j] - torch.log(-torch.log(
+                    u[t, b].clamp_min(torch.finfo(torch.float32).tiny)))
+                top = z.topk(2).values
+                differ.append({"grid": b, "position": [i, j], "gap": (top[0] - top[1]).item()})
+        codes_b, logits_b = sample_codes_incremental(model, C, g.manual_seed(3), grid,
+                                                     return_logits=True)
+        ref = m32({"img": codes_b, "label": torch.as_tensor(C, device=DEV)})["logits"].float()
+    err = (logits_b - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    rec = {"grids": EXACT_GRIDS, "codes_equal_share": float((inc == full).float().mean()),
+           "first_differences": differ, "margin": EXACT_MARGIN,
+           "bf16_logits_max_abs_err": err, "f32_logits_max_abs": scale,
+           "bf16_tol": SLICE_TOL * scale}
+    if any(d["gap"] >= EXACT_MARGIN for d in differ):
+        bad.append(f"f32 samplers differ where the draw is clear: {differ}")
+    if not err <= SLICE_TOL * scale:
+        bad.append(f"bf16 sampler logits vs f32 forward: {err} > {SLICE_TOL} * {scale}")
+    return rec
+
+
+def pixelcnn_sampler(model, grid, out_dir, tag, bad) -> tuple[dict, dict, object]:
+    """One chunk of ``SAMPLE_CHUNK`` grids three ways, grids/s each: the
+    incremental sampler through the kernel (the counted run: 16 launches a
+    position), through the kernel's plain version, and the full re-forward
+    ``sample_codes``. Returns the record, the counted launches and a
+    closure that profiles one incremental chunk (run after the timed phases)."""
+    C = class_sweep(model.num_mode, SAMPLE_CHUNK // model.num_mode)
+    g = torch.Generator(device=DEV)
+    sample_codes_incremental(model, C[:16], g.manual_seed(0), grid)  # warm-up
+    zero_counts()
+    dt_k, codes_k = _timed(lambda: sample_codes_incremental(model, C, g.manual_seed(1), grid))
+    chunk_counts = counts()
+    model.use_plain_kernels()
+    dt_p, codes_p = _timed(lambda: sample_codes_incremental(model, C, g.manual_seed(1), grid))
+    model.use_plain_kernels(False)
+    zero_counts()
+    dt_f, codes_f = _timed(lambda: sample_codes(model, C, g.manual_seed(1), grid))
+    full_counts = counts()
+    H, W = grid
+    want = (model.num_layer + 1) * H * W  # the residuals and the head, per position
+    if chunk_counts["mc_gated_matmul"] != want or full_counts["mc_gated_matmul"] != want:
+        bad.append(f"{tag}: a chunk launched {chunk_counts} (incremental), {full_counts} "
+                   f"(re-forward), want {want} mc_gated_matmul")
+    for name, c in (("kernel", codes_k), ("plain", codes_p), ("reforward", codes_f)):
+        if c.shape != (SAMPLE_CHUNK, H, W) or c.min() < 0 or c.max() >= model.input_size:
+            bad.append(f"{tag} {name} codes {tuple(c.shape)} [{c.min()}, {c.max()}]")
+    rec = {"chunk": SAMPLE_CHUNK, "grid": list(grid),
+           "incremental_kernel": {"seconds": dt_k, "grids_per_s": SAMPLE_CHUNK / dt_k},
+           "incremental_plain": {"seconds": dt_p, "grids_per_s": SAMPLE_CHUNK / dt_p},
+           "reforward_kernel": {"seconds": dt_f, "grids_per_s": SAMPLE_CHUNK / dt_f},
+           # bf16 rounds the two paths' logits apart: near-ties may flip
+           "codes_equal_share_kernel_vs_plain": float((codes_k == codes_p).float().mean()),
+           "codes_equal_share_kernel_vs_reforward": float((codes_k == codes_f).float().mean()),
+           "launches_per_chunk": chunk_counts}
+
+    def profile(prof_dir):
+        return device_profile(lambda: _timed(lambda: sample_codes_incremental(
+            model, C, g.manual_seed(4), grid))[0], (), prof_dir, f"{tag}_sample_chunk")
+
+    return rec, chunk_counts, profile
+
+
+def run_pixelcnn(name_limit: str, data_dir: str, out_dir: str):
+    """MCPixelCNN and CPixelCNN at full width on the codes of the
+    ``vqvae:`` phase's ``_best`` (in ``out_dir``), on the CIFAR10-shaped
+    files: ``cli.train`` for 2 epochs of ``PIXELCNN_STEPS`` steps (each
+    evaluated on ``PIXELCNN_EVAL_BATCHES`` batches of the train split, NLL),
+    ``resume_mode=1`` to epoch 3
+    with the state checked equal, ``cli.test_model``, one eval batch at the
+    eval batch size (16 launches), the sampler (a chunk three ways, the
+    exactness checks) and the five ``cli.sample`` calls."""
+    base = ["--data_name", "CIFAR10", "--data_dir", data_dir, "--output_dir", out_dir,
+            "--device", str(DEV)]
+    runs, bad, launches, profiles = {}, [], {}, {}
+    for model, ctrl in (("mcpixelcnn", "0.5"), ("cpixelcnn", "None")):
+        argv = base + ["--model_name", model, "--control_name", ctrl]
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        (exp,) = cli_train.main(argv + ["--num_epochs", str(TRAINER_EPOCHS)],
+                                limit_train_batches=PIXELCNN_STEPS,
+                                limit_eval_batches=PIXELCNN_EVAL_BATCHES)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        trainer = counts()
+        B = exp.cfg["batch_size"]["train"]
+        steps = sum(s["train_steps"] for s in exp.epoch_stats)
+        evals = sum(-(-s["eval_images"] // B) for s in exp.epoch_stats)
+        per_forward = exp.model.num_layer + 1  # 16: the residuals and the head
+        want = {"first_dblock": 0, "vq_assign": steps + evals, "vq_ema": 0,
+                "mc_gated_matmul": per_forward * evals}
+        if trainer != want:
+            bad.append(f"{model} trainer: launches {trainer}, want {want}")
+        saved = to_numpy(exp.state_dict())
+        (exp3,) = cli_train.main(argv + ["--num_epochs", str(TRAINER_EPOCHS + 1),
+                                         "--resume_mode", "1"],
+                                 limit_train_batches=PIXELCNN_STEPS,
+                                 limit_eval_batches=PIXELCNN_EVAL_BATCHES)
+        resumed = exp3.resumed or {}
+        mismatch = _state_mismatch(saved, resumed["state"]) if resumed else ["nothing resumed"]
+        if mismatch:
+            bad.append(f"{model}: resumed state differs at {mismatch[:8]}")
+        (tested,) = cli_test_model.main(argv, limit_eval_batches=PIXELCNN_EVAL_BATCHES)
+        hist = _history(exp3, ("train/Loss", "train/NLL", "test/Loss", "test/NLL"))
+        if any(len(v) != TRAINER_EPOCHS + 1 or not all(math.isfinite(x) for x in v)
+               for v in hist.values()):
+            bad.append(f"{model}: Loss / NLL not finite every epoch: {hist}")
+        net = exp3.model
+        side = exp3.cfg["data_shape"][0] // 4
+        # one eval batch at the eval batch size: 16 launches
+        Be = exp3.cfg["batch_size"]["test"]
+        g = torch.Generator(device=DEV).manual_seed(5)
+        batch = {"img": torch.randint(0, net.input_size, (Be, side, side), generator=g,
+                                      device=DEV),
+                 "label": torch.arange(Be, device=DEV) % net.num_mode}
+        zero_counts()
+        with torch.no_grad():
+            ev = net(batch)
+        torch.cuda.synchronize()
+        eval_counts = counts()
+        if eval_counts["mc_gated_matmul"] != per_forward or not torch.isfinite(ev["loss"]):
+            bad.append(f"{model} eval batch: {eval_counts}, loss {float(ev['loss'])}")
+        sampler, chunk_counts, profiles[model] = pixelcnn_sampler(net, (side, side), out_dir,
+                                                                  model, bad)
+        exact = pixelcnn_exactness(net, (side, side), bad)
+        zero_counts()
+        wf = run_sample_calls(model, ctrl, base, out_dir, exp.tag, exp.cfg["data_shape"][-1],
+                              bad)
+        wf_counts = counts()
+        launches[model] = {"trainer": trainer, "eval_batch": eval_counts,
+                           "sample_chunk": chunk_counts, "workflows": wf_counts}
+        runs[model] = {
+            "tag": exp.tag, "steps_per_epoch": PIXELCNN_STEPS, "run_wall_seconds": wall,
+            "parameters": sum(p.numel() for p in net.parameters()),
+            "compute_dtype": str(net.compute_dtype),
+            "train_images_per_s": [s["train_images_per_s"] for s in
+                                   exp.epoch_stats + exp3.epoch_stats],
+            "eval_images": [s["eval_images"] for s in exp.epoch_stats + exp3.epoch_stats],
+            "eval_seconds": [s["eval_seconds"] for s in exp.epoch_stats + exp3.epoch_stats],
+            "nll_by_epoch": hist["test/NLL"], "train_nll_by_epoch": hist["train/NLL"],
+            "test_model": dict(tested.mean), "resumed_state_equal": not mismatch,
+            "sampler": sampler, "exactness": exact, "workflows": wf, "launches": launches[model],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        log(f"pixelcnn {model}:", json.dumps(runs[model]))
+    log("pixelcnn:", json.dumps({"card": name_limit, "launches": launches}))
+    if bad:
+        raise SystemExit("pixelcnn failed: " + "; ".join(bad))
+
+    def profile(prof_dir):  # one sampler chunk each, after every timed phase
+        out = {}
+        for model, run in profiles.items():
+            rec = run(prof_dir)
+            out[model] = {k: rec[k] for k in ("window_ms", "device_busy_ms", "device_busy_share",
+                                              "kernel_launches", "category_ms", "top_kernels")}
+        return out
+
+    return launches, runs, profile
+
+
+def run_real_pixelcnn(name_limit: str, base: list, out_dir: str):
+    """MCPixelCNN and CPixelCNN on the codes of the real digits' VQ-VAE
+    (``real vae:``'s ``_best``), ``REAL_PIXELCNN_EPOCHS`` epochs each, NLL
+    per epoch side by side, and one ``generate`` grid each."""
+    runs, bad, launches = {}, [], {}
+    for model, ctrl in (("mcpixelcnn", "0.5"), ("cpixelcnn", "None")):
+        argv = base + ["--model_name", model, "--control_name", ctrl]
+        zero_counts()
+        t0 = time.perf_counter()
+        (exp,) = cli_train.main(argv + ["--num_epochs", str(REAL_PIXELCNN_EPOCHS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[model] = counts()
+        B = exp.cfg["batch_size"]["train"]
+        steps = sum(s["train_steps"] for s in exp.epoch_stats)
+        evals = sum(-(-s["eval_images"] // B) for s in exp.epoch_stats)
+        per_forward = exp.model.num_layer + 1  # 16: the residuals and the head
+        want = {"first_dblock": 0, "vq_assign": steps + evals, "vq_ema": 0,
+                "mc_gated_matmul": per_forward * evals}
+        if launches[model] != want:
+            bad.append(f"{model}: launches {launches[model]}, want {want}")
+        hist = exp.logger.history.get("test/NLL", [])
+        if len(hist) != REAL_PIXELCNN_EPOCHS or not all(math.isfinite(x) for x in hist):
+            bad.append(f"{model}: NLL {hist}")
+        t0 = time.perf_counter()
+        cli_sample.main("generate", argv)
+        gen_s = time.perf_counter() - t0
+        path = vis_path({"output_dir": out_dir}, f"generated_{exp.tag}_10.png")
+        png, shape = read_png(path), _grid_shape(10 * exp.cfg["save_per_mode"], 10, 1)
+        if png.shape != shape:
+            bad.append(f"{path}: {png.shape}, want {shape}")
+        runs[model] = {"run_wall_seconds": wall, "steps": steps, "nll_by_epoch": hist,
+                       "train_nll_by_epoch": exp.logger.history.get("train/NLL", []),
+                       "train_images_per_s": [s["train_images_per_s"] for s in exp.epoch_stats],
+                       "generate_seconds": gen_s, "generate_png": list(png.shape),
+                       "launches": launches[model]}
+    log("real: epoch | MCPixelCNN NLL | CPixelCNN NLL")
+    for e in range(REAL_PIXELCNN_EPOCHS):
+        log(f"real: {e + 1} | " + " | ".join(
+            f"{runs[m]['nll_by_epoch'][e]:.5f}" if e < len(runs[m]["nll_by_epoch"]) else "-"
+            for m in ("mcpixelcnn", "cpixelcnn")))
+    log("real pixelcnn:", json.dumps({"card": name_limit, **runs}))
+    if bad:
+        raise SystemExit("real pixelcnn failed: " + "; ".join(bad))
+    return launches, runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile one G->D pass and one train step; traces and tables go to DIR")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
@@ -1479,8 +1901,9 @@ def main() -> int:
         sass = sass_tensor_core_count(kname)
         log(f"sass {kname}: instructions {json.dumps(sass)}"
             + (" (no cuobjdump)" if sass is None else ""))
-        # first_dblock is designed for the tensor cores; the VQ kernels run
-        # f32 on the CUDA cores (FFMA), by design
+        # first_dblock and mc_gated_matmul (bf16) are designed for the
+        # tensor cores; the VQ kernels run f32 on the CUDA cores (FFMA), by
+        # design
         if kname in TENSOR_CORE_KERNELS and sass is not None \
                 and sass["HMMA"] + sass["HGMMA"] == 0:
             raise SystemExit(f"{kname}: no tensor-core instruction in its SASS")
@@ -1499,24 +1922,25 @@ def main() -> int:
     check_first_dblock_grad((2, 16, 12, 3, 64), seed=7)
     check_first_dblock_grad((2, 8, 12, 1, 128), seed=8)
     vq_d, vq_k = 64, 512  # the CIFAR10 VQ-VAE's codebook; 8x8 codes per image
-    vq_timers = []  # the kernels' device times are read after every timed phase
-    assign_train = check_vq_assign(128 * 64, vq_d, vq_k, seed=20, timers=vq_timers)
-    assign_eval = check_vq_assign(512 * 64, vq_d, vq_k, seed=21, timers=vq_timers)
+    timers = []  # the kernels' device times are read after every timed phase
+    assign_train = check_vq_assign(128 * 64, vq_d, vq_k, seed=20, timers=timers)
+    assign_eval = check_vq_assign(512 * 64, vq_d, vq_k, seed=21, timers=timers)
     check_vq_assign(17 * 64, vq_d, vq_k, seed=22)  # the digits' ragged batch
     check_vq_assign(1, vq_d, vq_k, seed=23)
     check_vq_assign(4096, vq_d, vq_k, seed=24, tie=True)
     check_vq_assign(1000, 8, 16, seed=25)  # a tiny codebook: one ragged tile
     # the main path's traffic: a train step's rows and codes, after as many
     # steps as the timed VQ-VAE run takes
-    ema_step = check_vq_ema(128 * 64, vq_d, vq_k, seed=32, timers=vq_timers,
+    ema_step = check_vq_ema(128 * 64, vq_d, vq_k, seed=32, timers=timers,
                             inputs=vq_step_inputs(vqvae_cfg(), TRAIN_WARMUP + TRAIN_STEPS))
-    ema_spread = check_vq_ema(128 * 64, vq_d, vq_k, seed=26, timers=vq_timers)
-    ema_masked = check_vq_ema(128 * 64, vq_d, vq_k, seed=27, timers=vq_timers, weighted=True)
-    ema_collapsed = check_vq_ema(128 * 64, vq_d, vq_k, seed=31, timers=vq_timers,
+    ema_spread = check_vq_ema(128 * 64, vq_d, vq_k, seed=26, timers=timers)
+    ema_masked = check_vq_ema(128 * 64, vq_d, vq_k, seed=27, timers=timers, weighted=True)
+    ema_collapsed = check_vq_ema(128 * 64, vq_d, vq_k, seed=31, timers=timers,
                                  collapsed=True)
     check_vq_ema(17 * 64, vq_d, vq_k, seed=28)
     check_vq_ema(1, vq_d, vq_k, seed=29)
     check_vq_ema(3000, 8, 16, seed=30, weighted=True)
+    mc_head, mc_others = check_mc_gated_matmul_all(timers)
 
     serve_launches, _, g_then_d = run_slice(name_limit)
     torch.backends.cudnn.allow_tf32 = True  # torch's default, as the bench script runs
@@ -1529,11 +1953,15 @@ def main() -> int:
         vae_launches, _ = run_vae(name_limit, data_dir, os.path.join(work, "vae"))
         vqvae_launches, _, profile_vqvae = run_vqvae(name_limit, data_dir,
                                                      os.path.join(work, "vqvae"))
+        # on the codes of the VQ-VAE just trained (its _best in work/vqvae)
+        px_launches, _, profile_px = run_pixelcnn(name_limit, data_dir,
+                                                  os.path.join(work, "vqvae"))
         shutil.rmtree(work, ignore_errors=True)
         cgan_launches, _, profile_cgan = run_cgan(name_limit)
         real_launches, _, (base, out_dir) = run_real(name_limit, work)
         wf_launches, _ = run_workflows(name_limit, base, out_dir)
         real_vae_launches, _ = run_real_vae(name_limit, base, out_dir)
+        real_px_launches, _ = run_real_pixelcnn(name_limit, base, out_dir)
         # last, so that no timed run follows a profiler session
         rec = profile_cgan(args.profile or os.path.join(work, "profile"))
         log("cgan profile:", json.dumps({k: rec[k] for k in (
@@ -1541,7 +1969,10 @@ def main() -> int:
             "category_ms")}))
         log("vqvae profile:", json.dumps(profile_vqvae(args.profile
                                                        or os.path.join(work, "profile"))))
-        vq_device_times(vq_timers)
+        kernel_device_times(timers)
+        # last: one sampler chunk is ~20,000 launches under the profiler
+        log("pixelcnn profile:", json.dumps(profile_px(args.profile
+                                                       or os.path.join(work, "profile"))))
         if args.profile:
             log("profile:", json.dumps(profile_pass(g_then_d, args.profile)))
             log("train profile:", json.dumps(profile_train(args.profile)))
@@ -1594,8 +2025,37 @@ def main() -> int:
                                  "vqvae_eval_batch": vqvae_launches["eval"][kname],
                                  "vqvae_trainer": vqvae_launches["trainer"][kname],
                                  "real_vqvae": real_vae_launches["vqvae"][kname],
-                                 **{f"vae_{m}": c[kname] for m, c in vae_launches.items()}},
+                                 **{f"vae_{m}": c[kname] for m, c in vae_launches.items()},
+                                 **{f"pixelcnn_trainer_{m}": c["trainer"][kname]
+                                    for m, c in px_launches.items()},
+                                 **{f"real_{m}": c[kname] for m, c in real_px_launches.items()}},
             "other_shapes": [{k: r[k] for k in vq_shapes} for r in others]})
+    px = px_launches["mcpixelcnn"]
+    kernels.append({
+        "name": "mc_gated_matmul", "route": "cuda",
+        "source": "mcgm_tpu_torch/csrc/mc_gated_matmul.cu",
+        "replaces": "mcgm_tpu/ops/pallas_kernels.py:49 at 0303c43 (mc_gated_matmul; "
+                    "pl.pallas_call at :66)",
+        "launches": px["sample_chunk"]["mc_gated_matmul"],
+        "max_abs_err": mc_head["max_abs_err"], "ms": mc_head["ms"],
+        "plain_ms": mc_head["plain_ms"], "bound_ms": mc_head["bound_ms"],
+        "bound_by": mc_head["bound_by"], "library_ms": mc_head["library_ms"],
+        "library": "torch.addmm (P = 1) / baddbmm (P = 64) with BatchNorm folded into the "
+                   "weight and bias, relu_, mul_ by the code: cuBLAS and two elementwise "
+                   "launches",
+        "shape": mc_head["shape"], "case": mc_head["case"],
+        "wrapper_ms": mc_head["wrapper_ms"], "roofline_share": mc_head["roofline_share"],
+        "launches_by_path": {
+            "pixelcnn_eval_batch": px["eval_batch"]["mc_gated_matmul"],
+            "pixelcnn_sample_chunk": px["sample_chunk"]["mc_gated_matmul"],
+            "pixelcnn_trainer": sum(c["trainer"]["mc_gated_matmul"]
+                                    for c in px_launches.values()),
+            "real_mcpixelcnn": real_px_launches["mcpixelcnn"]["mc_gated_matmul"],
+            "real_cpixelcnn": real_px_launches["cpixelcnn"]["mc_gated_matmul"],
+            "pixelcnn_workflows": sum(c["workflows"]["mc_gated_matmul"]
+                                      for c in px_launches.values())},
+        "other_shapes": [{k: r[k] for k in vq_shapes} for r in mc_others]})
+    log(f"wall: {time.perf_counter() - t_start:.1f} s for the whole script")
     log(name_limit)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

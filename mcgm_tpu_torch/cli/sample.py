@@ -6,8 +6,8 @@
         [--device cpu]
 
 For each seed it reads the dataset's processed files for the class count,
-loads ``{tag}_best`` (written by the port's trainer or by the JAX package)
-and runs the workflow with noise from a ``torch.Generator`` seeded with the
+loads ``{tag}_best`` (written by the port's trainer or by the JAX package;
+for a PixelCNN also its VQ-VAE's ``_best``) and runs the workflow with noise from a ``torch.Generator`` seeded with the
 seed. It runs on the card unless ``--device cpu`` is given, and raises if
 there is no card.
 """

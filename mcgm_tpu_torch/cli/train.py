@@ -1,10 +1,13 @@
-"""Training entry point of the port (mcgan, cgan, mcvae, cvae, vqvae and
-the classifier):
+"""Training entry point of the port (mcgan, cgan, mcvae, cvae, vqvae,
+mcpixelcnn, cpixelcnn and the classifier):
 
     python -m mcgm_tpu_torch.cli.train --data_name CIFAR10 --model_name mcgan \
         [--control_name 0.5] [--num_epochs N] [--resume_mode 1] [--device cpu]
 
-(``--control_name None`` for cgan, cvae, vqvae and the classifier.)
+(``--control_name None`` for cgan, cvae, vqvae, cpixelcnn and the
+classifier.) A PixelCNN trains on the codes of the VQ-VAE of the same seed
+and data (``--ae_name vqvae``, the default), whose ``_best`` checkpoint
+must exist: train ``--model_name vqvae`` first.
 
 It runs on the card unless ``--device cpu`` is given, and raises if there is
 no card. ``data_dir`` must hold ``CIFAR10/processed/{train,test}.npz`` or the

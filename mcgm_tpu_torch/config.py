@@ -3,7 +3,8 @@ the per-dataset shapes and derived hyperparameters.
 
 Port of ``mcgm_tpu/config.py`` (``load_config``, ``apply_control_name``,
 ``make_model_tag``, ``_DATA_SHAPES`` and ``process_control`` for the GAN
-family, the VAE family, the VQ-VAE and the classifier). Shapes are NHWC ``(H, W, C)`` as in the JAX package. The defaults
+family, the VAE family, the VQ-VAE, the PixelCNN family and the
+classifier). Shapes are NHWC ``(H, W, C)`` as in the JAX package. The defaults
 are the port's own ``config.yml``: the JAX package's keys less those of its
 TPU machinery (meshes, seed-parallel sweeps, dispatch groups, compile cache),
 with ``device: cuda``.
@@ -73,7 +74,8 @@ _DATA_SHAPES = {
 
 _GAN_FAMILY = ("cgan", "mcgan")
 _VAE_FAMILY = ("cvae", "mcvae")
-_PORTED = _GAN_FAMILY + _VAE_FAMILY + ("vqvae", "classifier")
+_PIXELCNN_FAMILY = ("cpixelcnn", "mcpixelcnn")
+_PORTED = _GAN_FAMILY + _VAE_FAMILY + _PIXELCNN_FAMILY + ("vqvae", "classifier")
 
 
 def _batch_size(cfg: dict, res: int) -> None:
@@ -88,11 +90,12 @@ def process_control(cfg: dict) -> dict:
 
     ``Synthetic{K}`` / ``SyntheticGray{K}`` take the shape of their base and
     the per-mode protocol of a dataset with that many modes. The GAN
-    family's, the VAE family's, the VQ-VAE's and the classifier's
-    hyperparameters are ported; other models raise until their slice lands
-    (ROADMAP Queue A). With ``derive_model_params=False`` a caller-supplied
-    ``gan`` / ``vae`` / ``vqvae`` dict is kept, as the tests do for tiny
-    models.
+    family's, the VAE family's, the VQ-VAE's, the PixelCNN family's (15
+    layers, hidden 128, 512 codes, over the ``ae_name`` VQ-VAE's grid) and
+    the classifier's hyperparameters are ported; Glow raises until its slice
+    lands (ROADMAP Queue A). With ``derive_model_params=False`` a
+    caller-supplied ``gan`` / ``vae`` / ``vqvae`` / ``pixelcnn`` dict is
+    kept, as the tests do for tiny models.
     """
     cfg = copy.deepcopy(cfg)
     if "controller_rate" in cfg.get("control", {}):
@@ -122,7 +125,9 @@ def process_control(cfg: dict) -> dict:
         cfg["vqvae"] = {"hidden_size": [128, 128] if res == 32 else [128, 128, 128, 128],
                         "num_res_block": 2, "embedding_size": 64, "num_embedding": 512,
                         "vq_commit": 0.25}
-    if name in _GAN_FAMILY:
+    if name in _PIXELCNN_FAMILY:
+        cfg["pixelcnn"] = {"num_layer": 15, "hidden_size": 128, "num_embedding": 512}
+    elif name in _GAN_FAMILY:
         if res == 32:
             if data_name in ("CIFAR10",):
                 g_hidden, d_hidden = [256] * 4, [128] * 4

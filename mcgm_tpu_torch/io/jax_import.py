@@ -12,7 +12,8 @@ variable's path maps to a key by rule:
   kh, kw]`` for transposed convs (modules named ``ConvTranspose_i``; the JAX
   package flips its kernel where it applies it, so the transpose alone is
   torch's weight) and ``[in,out]`` ->
-  ``[out,in]`` for dense layers; BatchNorm ``scale`` -> ``weight``,
+  ``[out,in]`` for dense layers; an ``Embed``'s ``embedding`` table ->
+  ``weight`` as it is; BatchNorm ``scale`` -> ``weight``,
   ``mean``/``var`` -> ``running_mean``/``running_var``; spectral ``u``,
   ``codebook`` and the quantizer's ``vq_stats`` (``embedding``,
   ``cluster_size``, ``embedding_mean``) keep their names.
@@ -38,6 +39,7 @@ _LEAF = {
     ("params", "kernel"): "weight",
     ("params", "scale"): "weight",
     ("params", "bias"): "bias",
+    ("params", "embedding"): "weight",
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
     ("spectral", "u"): "u",
@@ -122,8 +124,12 @@ def jax_leaves(module: nn.Module):
         bn = isinstance(mod, layers.BatchNorm)
         for leaf, t in list(mod.named_parameters(recurse=False)) + list(
                 mod.named_buffers(recurse=False)):
+            if leaf in mod._non_persistent_buffers_set:  # a Conv's causal mask
+                continue
             if isinstance(mod, VectorQuantizerEMA):
                 coll, key = "vq_stats", leaf
+            elif isinstance(mod, layers.Embed):
+                coll, key = "params", "embedding"
             elif bn:
                 coll, key = {"weight": ("params", "scale"), "bias": ("params", "bias"),
                              "running_mean": ("batch_stats", "mean"),
@@ -138,7 +144,8 @@ def jax_leaves(module: nn.Module):
 def to_jax_gan_variables(module: nn.Module) -> dict:
     """The flax variables (nested dicts of f32 numpy arrays, collections
     ``params`` / ``batch_stats`` / ``spectral`` / ``codebook`` /
-    ``vq_stats``) of an MCGAN, CGAN, MCVAE, CVAE or VQ-VAE, or any model
+    ``vq_stats``) of an MCGAN, CGAN, MCVAE, CVAE, VQ-VAE, MCPixelCNN or
+    CPixelCNN (masked kernels unmasked, as flax stores them), or any model
     built from this package's layers: the JAX
     package's layout, as its checkpoints hold it under ``model_dict``. The
     inverse of :func:`from_jax_variables`: loading the result back gives the

@@ -1,5 +1,5 @@
 """Model factory (port of ``mcgm_tpu/models/__init__.py``: mcgan, cgan,
-mcvae, cvae, vqvae and the classifier)."""
+mcvae, cvae, vqvae, mcpixelcnn, cpixelcnn and the classifier)."""
 
 from __future__ import annotations
 
@@ -9,10 +9,11 @@ from ..ops.layers import resolve_compute_dtype
 from ..utils import resolve_device
 from .classifier import Classifier
 from .gan import CGAN, MCGAN
+from .pixelcnn import CPixelCNN, MCPixelCNN
 from .vae import CVAE, MCVAE
 from .vqvae import VQVAE
 
-PORTED = ("mcgan", "cgan", "mcvae", "cvae", "vqvae", "classifier")
+PORTED = ("mcgan", "cgan", "mcvae", "cvae", "vqvae", "mcpixelcnn", "cpixelcnn", "classifier")
 
 
 def build_model(cfg: dict, device=None) -> nn.Module:
@@ -21,8 +22,8 @@ def build_model(cfg: dict, device=None) -> nn.Module:
     ``cfg["init_seed"]`` (default 0).
 
     ``cfg["classes_size"]`` must be set (but for vqvae); ``cfg["compute_dtype"]``
-    ('auto' by default) picks the activation dtype of the GANs, the VAEs and
-    the VQ-VAE. The classifier runs f32.
+    ('auto' by default) picks the activation dtype of the GANs, the VAEs,
+    the VQ-VAE and the PixelCNNs. The classifier runs f32.
     """
     name = cfg["model_name"]
     if name not in PORTED:
@@ -42,6 +43,15 @@ def build_model(cfg: dict, device=None) -> nn.Module:
         else:
             model = CVAE(shape, tuple(p["hidden_size"]), p["latent_size"], p["num_res_block"],
                          cfg["classes_size"], p["embedding_size"], dtype, seed)
+        return model.to(dev).eval()
+    if name in ("mcpixelcnn", "cpixelcnn"):
+        p = cfg["pixelcnn"]
+        if name == "mcpixelcnn":
+            model = MCPixelCNN(p["num_embedding"], p["hidden_size"], p["num_layer"],
+                               cfg["classes_size"], cfg.get("controller_rate", 0.5), dtype, seed)
+        else:
+            model = CPixelCNN(p["num_embedding"], p["hidden_size"], p["num_layer"],
+                              cfg["classes_size"], dtype, seed)
         return model.to(dev).eval()
     if name == "vqvae":
         p = cfg["vqvae"]

@@ -1,4 +1,4 @@
-"""Mode creation and transition for the GAN and VAE families. Port of
+"""Mode creation and transition for the GAN, VAE and PixelCNN families. Port of
 ``mcgm_tpu/models/manipulate.py`` (``create``, ``create_torch_compat``,
 ``transit``, ``transit_codebook``, ``transit_embedding``).
 
@@ -11,7 +11,8 @@ does). What changes:
 - the class embeddings of CGAN and CVAE: the bias-free ``embedding`` Dense
   of G (CVAE: of the encoder and of the decoder) and ``SNDense`` of D,
   whose port weight is ``[emb, num_mode]`` (mode axis 1; the JAX kernel is
-  its transpose).
+  its transpose); CPixelCNN's ``class_cond_embedding`` tables
+  ``[num_mode, 2h]`` (mode axis 0, as in the JAX package).
 
 ``create`` draws ``classes_size`` new modes: fresh codebooks, and Dirichlet
 convex mixes of the trained embedding rows; the caller rebuilds the model
@@ -47,6 +48,8 @@ def _matched(model: nn.Module) -> list:
             out.append((key, path, None, t))
         elif "embedding" in path and path[path.index("embedding") + 1:] == ("kernel",):
             out.append((key, path, 1, t))
+        elif path[-2:] == ("class_cond_embedding", "embedding"):
+            out.append((key, path, 0, t))
     return sorted(out, key=lambda m: m[1])
 
 
@@ -69,7 +72,14 @@ def _ref_order_key(family: str, parts: tuple):
     then the trailing controller or embedding. VAE: encoder before decoder;
     the encoder's controllers (or embedding), then its residual blocks; the
     decoder's ``MultimodalController_0`` and ``_1``, its residual blocks,
-    then ``MultimodalController_2`` on."""
+    then ``MultimodalController_2`` on. PixelCNN: the layers in order
+    (``gate_v``, ``gate_h``, ``horiz_resid_mc``, or the layer's class
+    embedding), then the head."""
+    if family == "pixelcnn":
+        if parts[0] == "head":
+            return (1, 0, 0)
+        sub = {"gate_v": 0, "gate_h": 1, "horiz_resid_mc": 2}.get(parts[1], 0)
+        return (0, _nat(parts[0]), sub)
     top = {"generator": 0, "discriminator": 1, "encoder": 0, "decoder": 1}.get(parts[0], 9)
     name = parts[1] if len(parts) > 1 else ""
     if family == "vae":
@@ -106,11 +116,11 @@ def create_torch_compat(model: nn.Module, classes_size: int, seed: int,
     then codebooks and Dirichlet mixes drawn module by module. As in the
     reference, CGAN's D embedding consumes a draw and keeps its weight (its
     spectral norm recomputes the weight from the original)."""
-    family = "gan" if "gan" in model_name else "vae" if model_name in ("mcvae", "cvae") else None
+    family = next((f for f in ("vae", "gan", "pixelcnn") if f in model_name), None)
     if family is None:
         raise NotImplementedError(
-            f"create for {model_name!r}: only the GAN and VAE families are ported "
-            "(ROADMAP Queue A)")
+            f"create for {model_name!r}: only the GAN, VAE and PixelCNN families are "
+            "ported (ROADMAP Queue A)")
     g = torch.Generator().manual_seed(seed)
     state = dict(model.state_dict())
     for key, path, axis, t in sorted(_matched(model),

@@ -5,8 +5,9 @@ Two stride-2 4x4 conv stages (hidden [128, 128] at 32px), two residual
 blocks and a 3x3 conv to the 64-d embedding space; the EMA vector quantizer
 with 512 codes (``ops/vq.py``, whose search and update are the hand-written
 kernels of ``kernels/vq.py`` on the card); the mirrored decoder ending in
-tanh. Loss ``MSE(recon, img) + 0.25 * commitment``. ``decode_code`` decodes
-a grid of codes (the PixelCNN's sampling backend).
+tanh. Loss ``MSE(recon, img) + 0.25 * commitment``. ``encode`` maps images
+to code grids (the PixelCNN's batches) and ``decode_code`` decodes a grid of
+codes (the PixelCNN's sampling backend).
 """
 
 from __future__ import annotations
@@ -82,6 +83,14 @@ class VQVAE(nn.Module):
         self.quantizer.plain = plain
         return self
 
+    def encode(self, x: torch.Tensor, train: bool = False, w=None):
+        """Images ``[B,H,W,C]`` -> ``(quantized [B,h,w,D], commitment diff,
+        code int32 [B,h,w])``: the encoder, then the quantizer (in eval its
+        search is the ``vq_assign`` kernel on the card); the PixelCNN's
+        frozen encoder."""
+        h = self.encoder(x.permute(0, 3, 1, 2).to(self.compute_dtype), train)
+        return self.quantizer(h.permute(0, 2, 3, 1), train=train, w=w)
+
     def decode_code(self, code: torch.Tensor, train: bool = False) -> torch.Tensor:
         """Images ``[B,H,W,C]`` in [-1, 1] (f32) decoded from code grids ``[B,h,w]``."""
         q = self.quantizer.embedding_code(code).to(self.compute_dtype)
@@ -92,8 +101,7 @@ class VQVAE(nn.Module):
         "img" (the reconstruction, NHWC f32), "code" (int32 [B,h,w])}``; in
         train mode the quantizer's EMA moves its buffers."""
         x, w = batch["img"], batch.get("w")
-        h = self.encoder(x.permute(0, 3, 1, 2).to(self.compute_dtype), train)
-        q, diff, code = self.quantizer(h.permute(0, 2, 3, 1), train=train, w=w)
+        q, diff, code = self.encode(x, train, w)
         recon = self.decoder(q.permute(0, 3, 1, 2), train).permute(0, 2, 3, 1).float()
         mse = weighted_mean((recon - x.float()) ** 2, w)
         return {"loss": mse + self.vq_commit * diff, "img": recon, "code": code}

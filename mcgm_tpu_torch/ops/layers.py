@@ -1,4 +1,4 @@
-"""NN building blocks of the GAN and VAE paths, ported from
+"""NN building blocks of the GAN, VAE and PixelCNN paths, ported from
 ``mcgm_tpu/ops/layers.py``.
 
 Activations inside the port are NCHW tensors (``torch.channels_last`` in
@@ -97,22 +97,54 @@ def _bias(b, x):
 
 
 class Conv(nn.Module):
-    """2D conv with integer padding, xavier kernel, torch-uniform bias."""
+    """2D conv, xavier kernel, torch-uniform bias.
 
-    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, stride: int = 1,
-                 padding: int = 0, bias: bool = True, generator=None,
-                 kernel_init=xavier_uniform):
+    ``kernel_size`` is an int or ``(kh, kw)``; ``padding`` an int or
+    ``((top, bottom), (left, right))``. ``kernel_mask`` (the PixelCNN's
+    causal mask, ``[kh, kw]`` or the JAX package's ``[kh, kw, 1, 1]``) is a
+    constant buffer the weight is multiplied by at apply: the weight itself
+    is stored unmasked, as in the JAX package, so masked taps get no
+    gradient and the import in either direction is the identity. The mask
+    is not part of the ``state_dict``.
+    """
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size=3, stride: int = 1,
+                 padding=0, bias: bool = True, generator=None,
+                 kernel_init=xavier_uniform, kernel_mask=None):
         super().__init__()
-        k = kernel_size
+        kh, kw = (kernel_size, kernel_size) if isinstance(kernel_size, int) else kernel_size
         self.stride, self.padding = stride, padding
         self.weight = nn.Parameter(kernel_init(
-            (out_ch, in_ch, k, k), in_ch * k * k, out_ch * k * k, generator))
-        self.bias = (nn.Parameter(torch_bias(out_ch, in_ch * k * k, generator))
+            (out_ch, in_ch, kh, kw), in_ch * kh * kw, out_ch * kh * kw, generator))
+        self.bias = (nn.Parameter(torch_bias(out_ch, in_ch * kh * kw, generator))
                      if bias else None)
+        if kernel_mask is not None:
+            kernel_mask = torch.as_tensor(kernel_mask, dtype=torch.float32).reshape(1, 1, kh, kw)
+        self.register_buffer("kernel_mask", kernel_mask, persistent=False)
+
+    def masked_weight(self) -> torch.Tensor:
+        return self.weight if self.kernel_mask is None else self.weight * self.kernel_mask
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight.to(x.dtype), _bias(self.bias, x),
-                        self.stride, self.padding)
+        pad = self.padding
+        if not isinstance(pad, int):
+            (top, bottom), (left, right) = pad
+            x, pad = F.pad(x, (left, right, top, bottom)), 0
+        return F.conv2d(x, self.masked_weight().to(x.dtype), _bias(self.bias, x),
+                        self.stride, pad)
+
+
+class Embed(nn.Module):
+    """A lookup table ``[num, features]`` with flax ``nn.Embed``'s init,
+    ``N(0, 1 / features)``."""
+
+    def __init__(self, num: int, features: int, generator=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.randn((num, features), generator=generator)
+                                   / math.sqrt(features))
+
+    def forward(self, idx: torch.Tensor) -> torch.Tensor:
+        return self.weight[idx.long()]
 
 
 class UpsampledConv(Conv):

@@ -1,4 +1,4 @@
-"""Create workflow (port of ``mcgm_tpu/workflows/create.py``, GAN family):
+"""Create workflow (port of ``mcgm_tpu/workflows/create.py``; GAN, VAE and PixelCNN families):
 generate modes that were never trained, by drawing fresh codebooks and
 Dirichlet mixes of the class embeddings (``models.manipulate.create``).
 

@@ -6,6 +6,10 @@ codebooks and embeddings moved toward root mode 0
 (``models.manipulate.transit``, always from the trained model) and the same
 z generated again; the rows stack into one grid per panel,
 ``{output_dir}/vis/transited_{tag}_{modes}.{save_format}``.
+
+A PixelCNN has no z: its fixed noise is the generator's state, restored
+before each alpha, so every row samples from the same uniforms. (The JAX
+package's transit refuses a PixelCNN: its ``sample_with_z`` raises.)
 """
 
 from __future__ import annotations
@@ -32,8 +36,15 @@ def transit_workflow(sampler: Sampler, tag: str, generator: torch.Generator | No
             continue
         C = np.arange(modes)
         z = sampler.sample_z(modes, generator)
-        rows = [sampler.with_state(transit(sampler.model, root, float(a)))
-                .sample_with_z(C, z).cpu().numpy() for a in alphas]
+        state = generator.get_state()
+        rows = []
+        for a in alphas:
+            s = sampler.with_state(transit(sampler.model, root, float(a)))
+            if z is None:  # autoregressive: the same uniforms for every alpha
+                generator.set_state(state)
+                rows.append(s.sample(C, generator).cpu().numpy())
+            else:
+                rows.append(s.sample_with_z(C, z).cpu().numpy())
         grid = np.concatenate(rows)
         save_image_grid(grid, vis_path(cfg, f"transited_{tag}_{modes}.{cfg['save_format']}"),
                         nrow=modes)

@@ -335,3 +335,78 @@ def test_vqvae_step_kernel_path_matches_plain(dev):
     for name in ("cluster_size", "embedding_mean", "embedding"):
         a, b = (getattr(q, name).reshape(-1, VQ_K)[:, keep] for q in (qk, qp))
         assert ((a - b).abs().amax(0) <= 1e-2 * b.abs().amax(0)).all(), name
+
+
+# ------------------------------------------------------- mc_gated_matmul
+def _mc_inputs(dev, B, K, N, P, modes=10, dtype=torch.bfloat16, seed=0, soft=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (B, K) if P is None else (B, K, P)
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    w = (torch.randn((N, K), generator=g, device=dev) / math.sqrt(K)).to(dtype)
+    alpha = torch.rand(N, generator=g, device=dev) + 0.5
+    beta = torch.randn(N, generator=g, device=dev) * 0.1
+    cb = (torch.rand((modes, N), generator=g, device=dev) < 0.5).float()
+    ind = torch.nn.functional.one_hot(torch.arange(B, device=dev) % modes, modes).float()
+    if soft:  # a row-mixed indicator, as transit and create make them
+        ind = torch.softmax(torch.randn((B, modes), generator=g, device=dev), -1)
+    return x, w, alpha, beta, ind.contiguous(), cb
+
+
+@pytest.mark.parametrize("B,K,N,P,relu,dtype,gate", [
+    (1000, 128, 512, None, True, torch.bfloat16, True),   # the sampler's head, one position
+    (512, 128, 128, 64, False, torch.bfloat16, True),     # an eval batch's residual
+    (17, 128, 512, 64, True, torch.float32, False),       # the digits' ragged batch, f32, no gate
+])
+def test_mc_gated_matmul_matches_plain(dev, B, K, N, P, relu, dtype, gate):
+    """The kernel against its plain version (f32 sums, one rounding to the
+    operands' dtype): within ``2e-2 * max|plain|`` in bf16 and
+    ``1e-5 * max|plain|`` in f32 (sums in another order)."""
+    from mcgm_tpu_torch.kernels import mc_gate
+
+    x, w, alpha, beta, ind, cb = _mc_inputs(dev, B, K, N, P, dtype=dtype)
+    if not gate:
+        ind = cb = None
+    before = mc_gate.mc_gated_matmul.launches
+    got = mc_gate.mc_gated_matmul(x, w, alpha, beta, ind, cb, relu)
+    assert mc_gate.mc_gated_matmul.launches == before + 1
+    want = mc_gate.mc_gated_matmul_reference(x, w, alpha, beta, ind, cb, relu)
+    assert got.shape == want.shape and got.dtype == dtype
+    tol = TOL if dtype == torch.bfloat16 else 1e-5
+    assert (got.float() - want.float()).abs().max() <= tol * want.float().abs().max()
+
+
+def test_mc_gated_matmul_gradient_matches_plain(dev):
+    """The Pallas form (no affine, no activation, a soft indicator): the
+    autograd Function's gradients against the plain version's autograd."""
+    from mcgm_tpu_torch.kernels import mc_gate
+
+    x, w, _, _, ind, cb = _mc_inputs(dev, 300, 128, 128, None, dtype=torch.float32, soft=True)
+    xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+    (mc_gate.mc_gated_matmul(xs, ws, None, None, ind, cb) ** 2).sum().backward()
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    (mc_gate.mc_gated_matmul_reference(xr, wr, None, None, ind, cb) ** 2).sum().backward()
+    for a, b in ((xs.grad, xr.grad), (ws.grad, wr.grad)):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+@pytest.mark.parametrize("name", ["mcpixelcnn", "cpixelcnn"])
+def test_pixelcnn_eval_forward_kernel_path_matches_plain(dev, name):
+    """The full-width PixelCNN's eval forward on 64 random 8x8 grids (bf16
+    operands), through the kernel (16 launches: 15 residuals and the head)
+    and through its plain version: logits within ``2e-2 * max|plain|``."""
+    from mcgm_tpu_torch.config import process_control
+    from mcgm_tpu_torch.kernels import mc_gate
+    from mcgm_tpu_torch.models import build_model
+
+    cfg = process_control({"data_name": "CIFAR10", "model_name": name, "ae_name": "vqvae"})
+    cfg["classes_size"] = 10
+    model = build_model(cfg, dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    batch = {"img": torch.randint(0, 512, (64, 8, 8), generator=g, device=dev),
+             "label": torch.arange(64, device=dev) % 10}
+    with torch.no_grad():
+        before = mc_gate.mc_gated_matmul.launches
+        got = model(batch)["logits"].float()
+        assert mc_gate.mc_gated_matmul.launches == before + 16
+        want = model.use_plain_kernels()(batch)["logits"].float()
+    assert (got - want).abs().max() <= TOL * want.abs().max()
