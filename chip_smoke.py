@@ -78,10 +78,13 @@ Phases, each of which exits non-zero on failure:
     (which fall on a few codes: the main path's traffic), and at N = 8,192 with the codes
     spread, with a row mask and collapsed onto three, ragged and N = 1
     (cluster sizes bit-equal, the rest within ``EMA_TOL`` of each code's
-    column); each timed beside its plain version, a PyTorch yardstick and
-    its bound (run after the first D-block's checks, before the slice); the
-    kernels' own device times from ``torch.profiler`` after every timed
-    phase;
+    column; two launches on the same inputs bit-equal); each timed beside
+    its plain version, a PyTorch yardstick and its bound (run after the
+    first D-block's checks, before the slice); the kernels' own device
+    times from ``torch.profiler`` after every timed phase (``vq_ema``: the
+    sum of its three kernels per call, each one's, and the span of a call
+    from its first kernel's start to its last one's end; its count is
+    of kernel launches, three a call);
 11. vae: MCVAE and CVAE at the CIFAR10 configuration's full width (hidden
     [64, 128, 256], latent 128, 2 residual blocks) on the trainer's
     CIFAR10-shaped files through ``cli.train``: 2 epochs of ``VAE_STEPS``
@@ -104,8 +107,12 @@ Phases, each of which exits non-zero on failure:
     N = 128) and an eval batch's (512 grids x 64 positions), all four timed
     (device time from ``torch.profiler`` at the end, the wrapper, the plain
     version, the cuBLAS yardstick, the bound); the digits' ragged batch,
-    M = 1, a soft indicator, the Pallas form, no gate, f32 operands and 100
-    modes checked; its gradient against the plain version's autograd;
+    K 64 and N 200, M = 1, a soft indicator, the Pallas form, no gate, f32
+    operands, K 96 with P 16 (the generic bf16 kernel), 100 modes, and
+    1,000 and 1,200 grids x 64 positions (a block of the samples kernel
+    takes more than one batch of 8 samples' codes) checked, each line
+    naming the kernel the C entry point chose (``variant``); its gradient
+    against the plain version's autograd;
 15. pixelcnn (before ``vqvae:``'s folder is removed): MCPixelCNN and
     CPixelCNN at full width (15 layers, hidden 128, 512 codes, 10 modes,
     B=128) on the codes of ``vqvae:``'s ``_best``, through ``cli.train``: 2
@@ -135,6 +142,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import functools
 import json
 import math
 import os
@@ -1107,10 +1115,11 @@ def vq_step_inputs(cfg, steps: int):
 
 def check_vq_ema(N, D, K, seed, timers: list | None = None, weighted: bool = False,
                  collapsed: bool = False, inputs=None):
-    """The update on copies of the same buffers through the kernel and the
-    plain version (f32 on the card): cluster sizes equal (the counts are
-    exact), ``embedding_mean`` and ``embedding`` within ``EMA_TOL`` of each
-    code's column (:func:`column_errors`; sums of rows in another order).
+    """The update on copies of the same buffers through the kernel (twice:
+    the two results bit-equal) and the plain version (f32 on the card):
+    cluster sizes equal (the counts are exact), ``embedding_mean`` and
+    ``embedding`` within ``EMA_TOL`` of each code's column
+    (:func:`column_errors`; sums of rows in another order).
     Random rows and codebook, the codes from ``vq_assign`` (spread) or with
     ``collapsed`` every row on one of three codes, cluster sizes in [1, 3];
     or ``inputs = (flat, code, buffers)``, as :func:`vq_step_inputs` gives
@@ -1135,13 +1144,16 @@ def check_vq_ema(N, D, K, seed, timers: list | None = None, weighted: bool = Fal
     g = torch.Generator(device=DEV).manual_seed(seed + 2)
     w = (torch.rand(N, generator=g, device=DEV) < 0.75).float() if weighted else None
     got = {k: t.clone() for k, t in bufs.items()}
+    again = {k: t.clone() for k, t in bufs.items()}
     want = {k: t.clone() for k, t in bufs.items()}
     kvq.vq_ema(flat, code, w, *got.values(), 0.99, 1e-5)
+    kvq.vq_ema(flat, code, w, *again.values(), 0.99, 1e-5)
     kvq.vq_ema_reference(flat, code, w, *want.values(), 0.99, 1e-5)
     torch.cuda.synchronize()
     rec = {"shape": [N, D, K], "case": case + (", rows masked" if weighted else ""),
-           "codes_used": int(torch.unique(code).numel())}
-    bad = []
+           "codes_used": int(torch.unique(code).numel()),
+           "two_launches_bit_equal": all(torch.equal(got[k], again[k]) for k in bufs)}
+    bad = [] if rec["two_launches_bit_equal"] else ["two launches differ"]
     for k in bufs:
         rec[k] = column_errors(got[k], want[k])
         tol = 0.0 if k == "cluster_size" else EMA_TOL
@@ -1178,32 +1190,70 @@ def time_kernel(rec, kname, kernel, plain, library, timers: list) -> None:
 def kernel_device_times(timers: list, reps: int = 20) -> None:
     """For each record queued by :func:`time_kernel`, ``reps`` calls of the
     wrapper under ``torch.profiler``: ``ms`` is the mean device time of one
-    launch of the kernel itself (the wrapper's copies and the host left
-    out) and ``roofline_share`` its bound over it. After every timed phase,
-    as the other profiles."""
+    call's kernels themselves (the wrapper's copies and the host left out)
+    and ``roofline_share`` its bound over it. Where a call launches several
+    kernels (``vq_ema``: by its wrapper's count over one call), also
+    ``ms_by_kernel`` and ``span_ms``, the mean time from a call's first
+    kernel's start to its last one's end (the gaps between them in). After
+    every timed phase, as the other profiles. A pass that sees another count
+    of launches is run again, twice at most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for rec, kname, kernel in timers:
-        kernel()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                kernel()
+        for attempt in range(3):  # the profiler has been seen to drop an event
+            before = counts()[kname]
+            kernel()
             torch.cuda.synchronize()
-        ev = [e for e in prof.events()
-              if e.device_type == DeviceType.CUDA and f"{kname}_kernel" in e.name]
-        if len(ev) != reps:
-            raise SystemExit(f"{kname}: the profiler saw {len(ev)} launches of {reps}")
-        rec["ms"] = sum(e.time_range.end - e.time_range.start for e in ev) / 1e3 / reps
+            per_call = counts()[kname] - before
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    kernel()
+                torch.cuda.synchronize()
+            ev = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and f"{kname}_kernel" in e.name]
+            if per_call >= 1 and len(ev) == reps * per_call:
+                break
+            log(f"{kname}: the profiler saw {len(ev)} launches of {reps} x {per_call}")
+        else:
+            raise SystemExit(f"{kname}: the profiler saw {len(ev)} launches of "
+                             f"{reps} x {per_call} in each of 3 passes")
+        by_kernel = {}
+        for e in ev:
+            name = re.search(rf"{kname}_kernel\w*", e.name).group(0)
+            by_kernel[name] = by_kernel.get(name, 0.0) + (e.time_range.end
+                                                          - e.time_range.start) / 1e3 / reps
+        rec["ms"] = sum(by_kernel.values())
         rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
+        extra = ()
+        if per_call > 1:
+            ev.sort(key=lambda e: e.time_range.start)
+            calls = [ev[i:i + per_call] for i in range(0, len(ev), per_call)]
+            rec["ms_by_kernel"] = by_kernel
+            rec["span_ms"] = sum(c[-1].time_range.end - c[0].time_range.start
+                                 for c in calls) / 1e3 / reps
+            extra = ("ms_by_kernel", "span_ms")
         log(f"{kname} device:", json.dumps({k: rec[k] for k in (
             "shape", "case", "ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
-            "roofline_share")}))
+            "roofline_share") + extra + (("variant",) if "variant" in rec else ())}))
 
 
 def vq_launches() -> dict:
     return {"vq_assign": kvq.vq_assign.launches, "vq_ema": kvq.vq_ema.launches}
+
+
+@functools.cache
+def ema_kernels() -> int:
+    """Kernels that one ``vq_ema`` call launches on the card (its wrapper
+    counts each): the count over one call on one row, taken the first time
+    it is asked for; :func:`main` asks before any path is counted."""
+    before = kvq.vq_ema.launches
+    bufs = (torch.ones(2, device=DEV), torch.zeros(4, 2, device=DEV),
+            torch.zeros(4, 2, device=DEV))
+    kvq.vq_ema(torch.zeros(1, 4, device=DEV), torch.zeros(1, dtype=torch.int32, device=DEV),
+               None, *bufs, 0.99, 1e-5)
+    torch.cuda.synchronize()
+    return kvq.vq_ema.launches - before
 
 
 def zero_counts() -> None:
@@ -1355,7 +1405,8 @@ def run_vqvae(name_limit: str, data_dir: str, out_dir: str):
         res = vqvae_steps(*states[plain], step, TRAIN_STEPS, TRAIN_WARMUP)
         step_counts = step_counts or dict(res["launches"])  # the first: the counted run
         want = {"vq_assign": 0, "vq_ema": 0} if plain else {"vq_assign": TRAIN_STEPS,
-                                                             "vq_ema": TRAIN_STEPS}
+                                                             "vq_ema": TRAIN_STEPS
+                                                             * ema_kernels()}
         if res["launches"] != want or not math.isfinite(res["loss"]):
             bad.append(f"{'plain' if plain else 'kernel'} path: {res}")
         runs[plain].append(res)
@@ -1411,7 +1462,7 @@ def run_vqvae(name_limit: str, data_dir: str, out_dir: str):
     trainer_counts = vq_launches()
     steps = sum(s["train_steps"] for s in exp.epoch_stats)
     eval_batches = sum(-(-s["eval_images"] // B) for s in exp.epoch_stats)
-    if trainer_counts != {"vq_assign": steps + eval_batches, "vq_ema": steps}:
+    if trainer_counts != {"vq_assign": steps + eval_batches, "vq_ema": steps * ema_kernels()}:
         bad.append(f"trainer: {trainer_counts} in {steps} steps and {eval_batches} eval batches")
     hist = _history(exp, ("train/MSE", "test/MSE"))
     if any(len(v) != TRAINER_EPOCHS or not all(math.isfinite(x) for x in v)
@@ -1470,7 +1521,7 @@ def run_real_vae(name_limit: str, base: list, out_dir: str):
         steps = sum(s["train_steps"] for s in exp.epoch_stats)
         evals = sum(-(-s["eval_images"] // exp.cfg["batch_size"]["train"])
                     for s in exp.epoch_stats)
-        want = ({"first_dblock": 0, "vq_assign": steps + evals, "vq_ema": steps,
+        want = ({"first_dblock": 0, "vq_assign": steps + evals, "vq_ema": steps * ema_kernels(),
                  "mc_gated_matmul": 0} if model == "vqvae"
                 else {"first_dblock": 0, "vq_assign": 0, "vq_ema": 0, "mc_gated_matmul": 0})
         if launches[model] != want:
@@ -1544,7 +1595,8 @@ def check_mc_gated_matmul(B, K, N, P, relu, seed, case, timers=None, modes=10,
     scale = want.float().abs().max().item()
     tol = KERNEL_TOL if dtype == torch.bfloat16 else MC_TOL_F32
     rec = {"shape": [B * P, K, N], "B": B, "P": P, "case": case,
-           "dtype": str(dtype).replace("torch.", ""), "relu": relu, "gate": gate,
+           "variant": kmc.variant(x, w), "dtype": str(dtype).replace("torch.", ""),
+           "relu": relu, "gate": gate,
            "affine": affine, "soft_indicator": soft, "max_abs_err": err,
            "max_abs_plain": scale, "tol": tol * scale}
     if timers is not None:
@@ -1605,6 +1657,16 @@ def check_mc_gated_matmul_all(timers: list) -> tuple[dict, list]:
         check_mc_gated_matmul(512, 128, 128, 64, False, 43, "eval batch residual", timers)]
     check_mc_gated_matmul(17, 128, 512, 64, True, 44, "the digits' ragged eval batch")
     check_mc_gated_matmul(17, 128, 128, 64, False, 45, "the digits' ragged eval batch")
+    check_mc_gated_matmul(17, 64, 200, 64, True, 55, "ragged: K 64, N 200")
+    check_mc_gated_matmul(48, 96, 200, 16, False, 56, "K 96, P 16: the generic bf16 kernel")
+    # a block of the samples kernel forms its samples' codes 8 at a time:
+    # the re-forward's chunk of 1,000 grids gives it more than one batch at
+    # the head, and 1,200 grids at a residual too (7-9 samples a block)
+    check_mc_gated_matmul(SAMPLE_CHUNK, 128, 512, 64, True, 57, "the re-forward's chunk "
+                          "of grids, head")
+    check_mc_gated_matmul(SAMPLE_CHUNK, 128, 128, 64, False, 58, "the re-forward's chunk "
+                          "of grids, residual")
+    check_mc_gated_matmul(1200, 128, 128, 64, False, 59, "1,200 grids, residual")
     check_mc_gated_matmul(1, 128, 512, 1, True, 46, "M = 1")
     check_mc_gated_matmul(10, 128, 128, 1, False, 47, "a soft row-mixed indicator (transit)",
                           soft=True)
@@ -1940,6 +2002,7 @@ def main() -> int:
     check_vq_ema(17 * 64, vq_d, vq_k, seed=28)
     check_vq_ema(1, vq_d, vq_k, seed=29)
     check_vq_ema(3000, 8, 16, seed=30, weighted=True)
+    log(f"vq_ema: {ema_kernels()} kernel launches a call")  # before any path is counted
     mc_head, mc_others = check_mc_gated_matmul_all(timers)
 
     serve_launches, _, g_then_d = run_slice(name_limit)
@@ -2021,6 +2084,7 @@ def main() -> int:
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"], "library": library,
             "shape": rec["shape"], "case": rec["case"], "wrapper_ms": rec["wrapper_ms"],
             "roofline_share": rec["roofline_share"],
+            **({k: rec[k] for k in ("ms_by_kernel", "span_ms") if k in rec}),
             "launches_by_path": {"vqvae_step": vqvae_launches["step"][kname],
                                  "vqvae_eval_batch": vqvae_launches["eval"][kname],
                                  "vqvae_trainer": vqvae_launches["trainer"][kname],
@@ -2029,7 +2093,8 @@ def main() -> int:
                                  **{f"pixelcnn_trainer_{m}": c["trainer"][kname]
                                     for m, c in px_launches.items()},
                                  **{f"real_{m}": c[kname] for m, c in real_px_launches.items()}},
-            "other_shapes": [{k: r[k] for k in vq_shapes} for r in others]})
+            "other_shapes": [{k: r[k] for k in vq_shapes + ("span_ms",) if k in r}
+                             for r in others]})
     px = px_launches["mcpixelcnn"]
     kernels.append({
         "name": "mc_gated_matmul", "route": "cuda",
@@ -2045,6 +2110,7 @@ def main() -> int:
                    "launches",
         "shape": mc_head["shape"], "case": mc_head["case"],
         "wrapper_ms": mc_head["wrapper_ms"], "roofline_share": mc_head["roofline_share"],
+        "variant": mc_head["variant"],
         "launches_by_path": {
             "pixelcnn_eval_batch": px["eval_batch"]["mc_gated_matmul"],
             "pixelcnn_sample_chunk": px["sample_chunk"]["mc_gated_matmul"],
@@ -2054,7 +2120,8 @@ def main() -> int:
             "real_cpixelcnn": real_px_launches["cpixelcnn"]["mc_gated_matmul"],
             "pixelcnn_workflows": sum(c["workflows"]["mc_gated_matmul"]
                                       for c in px_launches.values())},
-        "other_shapes": [{k: r[k] for k in vq_shapes} for r in mc_others]})
+        "other_shapes": [{k: r[k] for k in vq_shapes + ("variant", "roofline_share")}
+                         for r in mc_others]})
     log(f"wall: {time.perf_counter() - t_start:.1f} s for the whole script")
     log(name_limit)
     log(json.dumps({"kernels": kernels}))

@@ -19,7 +19,11 @@ soft row mix) and ``codebook [modes, N]`` are the MC gate, skipped when
 TPU kernel's function ``(x @ w.T) * (indicator @ codebook)``.
 
 On a CUDA tensor it launches ``csrc/mc_gated_matmul.cu`` or raises; on a CPU
-tensor it computes :func:`mc_gated_matmul_reference`. The call is a
+tensor it computes :func:`mc_gated_matmul_reference`. The ``.cu`` holds three
+hand kernels, one launched per call, which its entry point picks by the
+shape (``samples``: bf16, P = 64, one product per sample on ``wgmma``;
+``rows``: bf16, P = 1, 64 x 64 tiles on ``wgmma``; ``generic``: f32 and
+every other shape); :func:`variant` names it. The call is a
 ``torch.autograd.Function`` whose backward is the JAX package's VJP of the
 TPU kernel, widened to the epilogue: the mask is a constant, so with
 ``gz = g * code`` (times ``out > 0`` under ReLU, times ``alpha``)
@@ -39,6 +43,20 @@ from . import build
 
 KERNEL = "mc_gated_matmul"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+VARIANTS = ("generic", "samples", "rows")  # the .cu's kernels, by its variant code
+
+
+def variant(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The kernel that a call on CUDA ``x`` and ``w`` launches, as the C entry
+    point chooses it (``mcgm_mc_gated_matmul_variant``: by shape, dtype and
+    16-byte alignment; the output is allocated aligned)."""
+    x3 = _as3(x)
+    B, K, P = x3.shape
+    fn = build.load(KERNEL).mcgm_mc_gated_matmul_variant
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 6
+    aligned = (x3.data_ptr() | w.data_ptr()) % 16 == 0
+    return VARIANTS[fn(B * P, w.shape[0], K, P, _DTYPES[x.dtype], int(aligned))]
 
 
 def bn_epilogue(bn, conv_bias) -> tuple[torch.Tensor, torch.Tensor]:

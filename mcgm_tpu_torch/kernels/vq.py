@@ -12,8 +12,10 @@ and sums of rows, their EMA into ``cluster_size`` and ``embedding_mean``,
 Laplace smoothing of the cluster sizes and ``embedding = mean / smoothed``.
 
 On a CUDA tensor each launches its kernel (``csrc/vq_assign.cu``,
-``csrc/vq_ema.cu``, f32 on the CUDA cores) or raises; on a CPU tensor it
-computes the plain version (:func:`vq_assign_reference`,
+``csrc/vq_ema.cu``, f32 on the CUDA cores; the EMA update is three
+launches over a scratch buffer whose size and layout the ``.cu`` sets) or
+raises, and its ``launches`` gains one per kernel launched (three per
+``vq_ema`` call); on a CPU tensor it computes the plain version (:func:`vq_assign_reference`,
 :func:`vq_ema_reference`), which follows the JAX package's XLA code
 (``mcgm_tpu/ops/vq.py``) op for op. Neither needs a gradient: codes are
 integers and the EMA updates buffers.
@@ -138,15 +140,22 @@ def vq_ema(flat, code, w, cluster_size, embedding_mean, embedding, decay: float,
         return
     if flat.data_ptr() % 16:  # rows are read 16 bytes at a time
         flat = flat.clone()
-    cs_out = torch.empty_like(cluster_size)  # every block reads all of cluster_size
-    lib, fn = _fn(EMA, [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float] * 4
-                  + [ctypes.c_void_p])
+    cs_out = torch.empty_like(cluster_size)  # the last pass reads all of the new sizes
+    lib, fn = _fn(EMA, [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float] * 4
+                  + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    size = lib.mcgm_vq_ema_scratch_bytes
+    if size.argtypes is None:
+        size.argtypes, size.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    # the partial sums, their counts and the slot table (csrc/vq_ema.cu)
+    scratch = torch.empty(size(N, D, K), dtype=torch.uint8, device=dev)
+    launched = ctypes.c_int(0)
     with torch.cuda.device(dev):  # 1 - decay and K eps as the plain version's scalars
         err = fn(flat.data_ptr(), code.data_ptr(), None if w is None else w.data_ptr(),
                  cluster_size.data_ptr(), cs_out.data_ptr(), embedding_mean.data_ptr(),
-                 embedding.data_ptr(), N, D, K, decay, 1 - decay, eps, K * eps, _stream(dev))
+                 embedding.data_ptr(), scratch.data_ptr(), N, D, K, decay, 1 - decay, eps,
+                 K * eps, ctypes.byref(launched), _stream(dev))
+    vq_ema.launches += launched.value  # one per kernel launched: three a call
     build.check(lib, err, EMA)
-    vq_ema.launches += 1
     cluster_size.copy_(cs_out)
 
 

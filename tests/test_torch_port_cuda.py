@@ -272,29 +272,54 @@ def test_vq_assign_matches_plain(dev, N, tie):
         assert torch.equal(code.long(), lowest[code.long()])
 
 
-@pytest.mark.parametrize("weighted,collapsed", [(False, False), (True, False), (False, True)])
-def test_vq_ema_matches_plain(dev, weighted, collapsed):
+@pytest.mark.parametrize("N,weighted,codes", [
+    (128 * 64, False, None), (128 * 64, True, None),  # spread, and with a row mask
+    (128 * 64, False, 3), (128 * 64, False, 1),       # collapsed onto three codes, onto one
+    (1, False, None), (17 * 64, True, None),          # one row; the digits' ragged batch
+])
+def test_vq_ema_matches_plain(dev, N, weighted, codes):
     """The buffers after one update: cluster sizes bit-equal (exact counts,
     the plain version's rounding), the mean and the codebook within
-    ``1e-5 * max|plain|`` (sums of rows in another order); also with every
-    row on one of three codes."""
+    ``1e-5 * max|plain|`` (sums of rows in another order); the codes spread
+    by the search, or every row on one of ``codes`` codes."""
     from mcgm_tpu_torch.kernels import vq as kvq
 
-    flat, emb = _vq_inputs(dev, 128 * 64, seed=1)
-    code, _ = kvq.vq_assign(flat, emb)
-    if collapsed:
-        code = torch.tensor([5, 6, VQ_K - 1], device=dev, dtype=torch.int32)[code % 3]
-    cs = torch.rand(VQ_K, device=dev) * 2 + 1
-    w = (torch.rand(len(flat), device=dev) < 0.75).float() if weighted else None
-    got = [cs.clone(), (emb * cs).contiguous(), emb.clone()]
-    want = [t.clone() for t in got]
+    got, want, args = _vq_ema_case(dev, N, weighted, codes)
     before = kvq.vq_ema.launches
-    kvq.vq_ema(flat, code, w, *got, 0.99, 1e-5)
-    assert kvq.vq_ema.launches == before + 1
-    kvq.vq_ema_reference(flat, code, w, *want, 0.99, 1e-5)
+    kvq.vq_ema(*args, *got, 0.99, 1e-5)
+    assert kvq.vq_ema.launches == before + 3  # rows, counts, codes
+    kvq.vq_ema_reference(*args, *want, 0.99, 1e-5)
     assert torch.equal(got[0], want[0])
     for g, t in zip(got[1:], want[1:]):
         assert (g - t).abs().max() <= 1e-5 * t.abs().max()
+
+
+def _vq_ema_case(dev, N, weighted, codes):
+    """Copies of the same buffers for two updates, and ``(flat, code, w)``."""
+    from mcgm_tpu_torch.kernels import vq as kvq
+
+    flat, emb = _vq_inputs(dev, N, seed=1)
+    code, _ = kvq.vq_assign(flat, emb)
+    if codes is not None:
+        code = torch.tensor([5, 6, VQ_K - 1][:codes], device=dev, dtype=torch.int32)[
+            code % codes]
+    cs = torch.rand(VQ_K, device=dev) * 2 + 1
+    w = (torch.rand(len(flat), device=dev) < 0.75).float() if weighted else None
+    got = [cs.clone(), (emb * cs).contiguous(), emb.clone()]
+    return got, [t.clone() for t in got], (flat, code, w)
+
+
+@pytest.mark.parametrize("weighted,codes", [(False, None), (True, None), (False, 3)])
+def test_vq_ema_two_launches_are_bit_equal(dev, weighted, codes):
+    """No order in the kernel's sums changes from run to run: two updates of
+    copies of the same buffers from the same inputs are bit-equal."""
+    from mcgm_tpu_torch.kernels import vq as kvq
+
+    a, b, args = _vq_ema_case(dev, 128 * 64, weighted, codes)
+    kvq.vq_ema(*args, *a, 0.99, 1e-5)
+    kvq.vq_ema(*args, *b, 0.99, 1e-5)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 def test_vqvae_step_kernel_path_matches_plain(dev):
@@ -323,7 +348,7 @@ def test_vqvae_step_kernel_path_matches_plain(dev):
         before = (kvq.vq_assign.launches, kvq.vq_ema.launches)
         out = make_train_step()(ts, {"img": img})
         launched = (kvq.vq_assign.launches - before[0], kvq.vq_ema.launches - before[1])
-        assert launched == ((0, 0) if plain else (1, 1))
+        assert launched == ((0, 0) if plain else (1, 3))  # vq_ema: three kernels
         outs[plain] = (out, model.quantizer)
     (k, qk), (p, qp) = outs[False], outs[True]
     assert abs(float(k["loss"]) - float(p["loss"])) <= 1e-2 * abs(float(p["loss"]))
@@ -352,20 +377,34 @@ def _mc_inputs(dev, B, K, N, P, modes=10, dtype=torch.bfloat16, seed=0, soft=Fal
     return x, w, alpha, beta, ind.contiguous(), cb
 
 
-@pytest.mark.parametrize("B,K,N,P,relu,dtype,gate", [
-    (1000, 128, 512, None, True, torch.bfloat16, True),   # the sampler's head, one position
-    (512, 128, 128, 64, False, torch.bfloat16, True),     # an eval batch's residual
-    (17, 128, 512, 64, True, torch.float32, False),       # the digits' ragged batch, f32, no gate
+@pytest.mark.parametrize("B,K,N,P,relu,dtype,gate,variant", [
+    (1000, 128, 512, None, True, torch.bfloat16, True, "rows"),   # the sampler's head
+    (512, 128, 128, 64, False, torch.bfloat16, True, "samples"),  # an eval batch's residual
+    (17, 128, 512, 64, True, torch.float32, False, "generic"),    # the digits' batch, f32
+    (512, 128, 512, 64, True, torch.bfloat16, True, "samples"),   # an eval batch's head
+    (17, 64, 200, 64, True, torch.bfloat16, True, "samples"),     # ragged: K 64, N 200
+    (1, 128, 512, None, True, torch.bfloat16, True, "rows"),      # M = 1
+    (48, 96, 200, 16, False, torch.bfloat16, True, "generic"),    # K 96, P 16
+    (128, 128, 100, None, False, torch.bfloat16, True, "generic"),  # P = 1, N % 8 != 0
+    # the re-forward's chunk of 1,000 grids, and 1,200: a block of the samples
+    # kernel takes more than one batch of codes (8 samples) at the head and
+    # at a residual
+    (1000, 128, 512, 64, True, torch.bfloat16, True, "samples"),
+    (1000, 128, 128, 64, False, torch.bfloat16, True, "samples"),
+    (1200, 128, 128, 64, False, torch.bfloat16, True, "samples"),
+    (1200, 64, 200, 64, True, torch.bfloat16, True, "samples"),
 ])
-def test_mc_gated_matmul_matches_plain(dev, B, K, N, P, relu, dtype, gate):
+def test_mc_gated_matmul_matches_plain(dev, B, K, N, P, relu, dtype, gate, variant):
     """The kernel against its plain version (f32 sums, one rounding to the
     operands' dtype): within ``2e-2 * max|plain|`` in bf16 and
-    ``1e-5 * max|plain|`` in f32 (sums in another order)."""
+    ``1e-5 * max|plain|`` in f32 (sums in another order), through each of
+    the three kernels the C entry point picks from, the pick named."""
     from mcgm_tpu_torch.kernels import mc_gate
 
     x, w, alpha, beta, ind, cb = _mc_inputs(dev, B, K, N, P, dtype=dtype)
     if not gate:
         ind = cb = None
+    assert mc_gate.variant(x, w) == variant
     before = mc_gate.mc_gated_matmul.launches
     got = mc_gate.mc_gated_matmul(x, w, alpha, beta, ind, cb, relu)
     assert mc_gate.mc_gated_matmul.launches == before + 1

@@ -116,14 +116,24 @@ def _t(a):
     return torch.from_numpy(np.array(a, order="C"))  # a writable, contiguous copy
 
 
-@pytest.mark.parametrize("relu,affine,P", [(False, False, None), (True, True, None),
-                                           (False, True, 5)])
-def test_mc_gated_matmul_plain_matches_jax(relu, affine, P):
+@pytest.mark.parametrize("relu,affine,P,Bn,K,N", [
+    (False, False, None, 12, 16, 24), (True, True, None, 12, 16, 24),
+    (False, True, 5, 12, 16, 24),
+    # the shapes the card's kernels split on: P = 64 (one product per
+    # sample), K 64 with a ragged N, more samples than a batch of codes
+    (True, True, 64, 3, 64, 200), (False, True, 64, 19, 16, 24),
+    (True, True, None, 70, 64, 100), (False, False, 16, 5, 96, 40),
+    # the PixelCNN's own widths: the head (K 128 -> 512) at one position and
+    # M = 1, a residual (128 -> 128) over 8 x 8 positions
+    (True, True, None, 9, 128, 512), (True, True, None, 1, 128, 512),
+    (False, True, 64, 2, 128, 128),
+])
+def test_mc_gated_matmul_plain_matches_jax(relu, affine, P, Bn, K, N):
     """The Pallas form ``mc_gate(x @ w, ind, cb)``, and the same product
     with the eval BatchNorm's affine (and ReLU) before the gate; with P
     positions per sample the port reads NCHW ``[B, K, P]`` where the JAX
     expression is channels-last ``[B, P, K]``."""
-    x, w, ind, cb, alpha, beta = _mc_inputs(np.random.default_rng(1), P=P)
+    x, w, ind, cb, alpha, beta = _mc_inputs(np.random.default_rng(1), Bn, K, N, P=P)
 
     def f(x, w, ind, cb):
         z = x @ w

@@ -173,15 +173,24 @@ def test_assign_ties_go_to_the_lowest_code():
     np.testing.assert_array_equal(q.numpy(), emb.T[code.numpy()])
 
 
-def test_ema_plain_version_matches_a_direct_count():
+@pytest.mark.parametrize("N,codes,weighted", [
+    (20, K, True),
+    # the card's cases: one row, every row on one code or on three (a
+    # train step's codes collapse), the digits' ragged batch of 17 grids
+    (1, K, False), (300, 1, False), (300, 3, True), (17 * 64, K, True),
+    # a chunk of 64 rows exactly, one row past it, every code used once;
+    # the card's check at N 3,000, D 8, K 16, masked
+    (64, K, False), (65, K, True), (K, K, False), (3000, K, True),
+])
+def test_ema_plain_version_matches_a_direct_count(N, codes, weighted):
     """``vq_ema`` on CPU tensors runs the plain version, in place, and
     launches nothing; held to per-code counts and sums taken with
     ``index_add_`` (exact counts; sums ``rtol=1e-6``)."""
     rng = np.random.default_rng(4)
     stats = {k: torch.from_numpy(a) for k, a in _stats(rng).items()}
-    flat = torch.from_numpy(rng.standard_normal((20, D)).astype(np.float32))
-    code = torch.from_numpy(rng.integers(0, K, 20).astype(np.int32))
-    w = torch.from_numpy((rng.random(20) < 0.7).astype(np.float32))
+    flat = torch.from_numpy(rng.standard_normal((N, D)).astype(np.float32))
+    code = torch.from_numpy((rng.integers(0, codes, N) * (K // codes)).astype(np.int32))
+    w = torch.from_numpy((rng.random(N) < 0.7 if weighted else np.ones(N)).astype(np.float32))
     bufs = {k: t.clone() for k, t in stats.items()}
     before = kvq.vq_ema.launches
     kvq.vq_ema(flat, code, w, bufs["cluster_size"], bufs["embedding_mean"], bufs["embedding"],
