@@ -71,9 +71,18 @@ Phases, each of which exits non-zero on failure:
 
 10. vq: the VQ-VAE's two kernels against their plain versions (f32 on the
     card): ``vq_assign`` at N = 8,192 (a train batch's 128 x 8 x 8 codes)
-    and 32,768 (an eval batch), a ragged 17 x 64, N = 1, a codebook with
-    every column twice (ties go to the lower code) and a tiny codebook,
-    checked against float64 distances within ``VQ_MARGIN``; ``vq_ema`` on
+    on random rows and on a full-width VQ-VAE train step's own rows and
+    codebook after 13 steps, and 32,768 (an eval batch), all three timed;
+    a ragged 17 x 64, N = 1, a codebook with every column twice (ties go to
+    the lower code), rows at the midpoint of two codes moved by 0 to 30
+    times the TF32 rounding of the cross term (near ties), rows and
+    codebook scaled by 30, D 256, a tiny codebook, and D 12 (the ``ffma``
+    kernel), the ties, near ties and D 256 again at N = 32,768 (several
+    tiles per block), checked against float64 distances within
+    ``VQ_MARGIN``, two launches bit-equal, each line naming the kernel the C
+    entry point chose (``variant``) and the rows that the ``tf32`` kernel
+    decided in f32, against every code (``rows_rescored``) and by their two
+    best codes (``rows_paired``); ``vq_ema`` on
     the rows and codes of a full-width VQ-VAE train step after 13 steps
     (which fall on a few codes: the main path's traffic), and at N = 8,192 with the codes
     spread, with a row mask and collapsed onto three, ragged and N = 1
@@ -183,6 +192,7 @@ from mcgm_tpu_torch.workflows.sampling import Sampler
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_F32_FLOPS = 67e12  # outside the tensor cores
 PEAK_BYTES = 3.35e12
 KERNEL_TOL = 2e-2  # max|kernel - plain| <= KERNEL_TOL * max|plain|, both bf16 out
@@ -191,7 +201,7 @@ TRAIN_TOL = 5e-2   # kernel path vs plain path, one train step: losses, first D 
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 NUM_MODE = 20
 DEV = torch.device("cuda")
-TENSOR_CORE_KERNELS = ("first_dblock", "mc_gated_matmul")
+TENSOR_CORE_KERNELS = ("first_dblock", "mc_gated_matmul", "vq_assign")
 INCEPTION_TOL = 1e-3  # max|card - cpu| <= INCEPTION_TOL * max|cpu|, both f32
 TRAINER_STEPS, TRAINER_EPOCHS = 20, 2
 TRAINER_IMAGES = {"train": 50_000, "test": 10_000}  # CIFAR10's splits
@@ -205,6 +215,9 @@ CLASSIFIER_EPOCHS, REAL_GAN_EPOCHS = 10, 20
 # (|x|^2 + max|e|^2) cannot be told apart by f32 sums in another order;
 # EMA sums of rows in another order within EMA_TOL * max|plain|
 VQ_MARGIN, EMA_TOL = 1e-5, 1e-5
+# near ties for vq_assign: rows whose two best codes differ by these
+# multiples of the cross term's TF32 rounding, 2 * 2^-10 |x| max|e| of the two
+NEAR_TIE_FACTORS = (0.0, 1e-3, 0.03, 0.3, 1.0, 3.0, 10.0, 30.0)
 # one VQ-VAE step through the kernels vs the plain versions: the loss within
 # VQ_STEP_TOL * |plain|, the buffers within VQ_STEP_TOL of each code's column
 # (column_errors), at least VQ_CODES_EQUAL of the codes equal (a code may flip
@@ -1001,9 +1014,9 @@ def vq_margin(flat, emb):
     return VQ_MARGIN * ((flat.double() ** 2).sum(1) + (emb.double() ** 2).sum(0).max())
 
 
-def vq_inputs(N, D, K, seed, tie=False):
-    """Rows ~ N(0, 1) and a codebook ~ N(0, 1) ``[D, K]``; with ``tie`` every
-    column appears twice, at shuffled places."""
+def vq_inputs(N, D, K, seed, tie=False, scale=1.0):
+    """Rows ~ N(0, 1) and a codebook ~ N(0, 1) ``[D, K]``, both times
+    ``scale``; with ``tie`` every column appears twice, at shuffled places."""
     g = torch.Generator(device=DEV).manual_seed(seed)
     flat = torch.randn((N, D), generator=g, device=DEV)
     if tie:
@@ -1011,13 +1024,43 @@ def vq_inputs(N, D, K, seed, tie=False):
         emb = torch.cat([half, half], 1)[:, torch.randperm(K, generator=g, device=DEV)]
     else:
         emb = torch.randn((D, K), generator=g, device=DEV)
-    return flat, emb.contiguous()
+    return (flat * scale).contiguous(), (emb * scale).contiguous()
 
 
-def vq_assign_bound(N, D, K):
-    flop = 2 * N * K * D
-    nbytes = 4 * (N * D + D * K + N + N * D)  # x and the codebook in, codes and q out
-    t_ops, t_bytes = flop / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def vq_near_tie_inputs(N, D, K, seed):
+    """A random codebook and rows at the midpoint of two random codes a, b,
+    moved along a - b so that their two distances differ by f x 2 * 2^-10
+    |x| max(|e_a|, |e_b|) (the size of the cross term's TF32 rounding), f
+    over ``NEAR_TIE_FACTORS`` and both signs in turn; the midpoint is far
+    nearer to a and b than to any other code."""
+    _, emb = vq_inputs(1, D, K, seed)
+    g = torch.Generator(device=DEV).manual_seed(seed + 1)
+    a = torch.randint(0, K, (N,), generator=g, device=DEV)
+    b = (a + torch.randint(1, K, (N,), generator=g, device=DEV)) % K
+    ea, eb = emb.double().t()[a], emb.double().t()[b]
+    mid, diff = (ea + eb) / 2, ea - eb
+    norm = diff.norm(dim=1, keepdim=True)
+    tau = 2 * 2.0 ** -10 * mid.norm(dim=1, keepdim=True) * torch.maximum(
+        ea.norm(dim=1, keepdim=True), eb.norm(dim=1, keepdim=True))
+    i = torch.arange(N, device=DEV)
+    nf = len(NEAR_TIE_FACTORS)
+    f = torch.tensor(NEAR_TIE_FACTORS, device=DEV, dtype=torch.float64)[i % nf]
+    f = f * (1 - 2 * ((i // nf) % 2))
+    # |x - e_b|^2 - |x - e_a|^2 = 2 t |a - b| at x = mid + t (a - b) / |a - b|
+    return (mid + (f[:, None] * tau / (2 * norm)) * diff / norm).float().contiguous(), emb
+
+
+def vq_assign_bound(N, D, K, rescored=0, paired=0, peak=PEAK_TF32_FLOPS):
+    """The least time for the search: x and the codebook in, codes and q
+    out, against the operations, the larger. The operations: the cross
+    term's MACs at ``peak`` (the TF32 tensor cores) or the f32 MACs of the
+    rows decided exactly (FFMA on the CUDA cores: ``rescored`` rows against
+    every code, ``paired`` rows against their two best), whichever takes
+    longer, since the two pipes run side by side. ``peak=PEAK_F32_FLOPS``
+    gives the f32 bound of the CUDA-core design before it
+    (``bound_f32_ms``)."""
+    t_ops = max(2 * N * K * D / peak, 2 * (rescored * K + paired * 2) * D / PEAK_F32_FLOPS)
+    t_bytes = 4 * (N * D + D * K + N + N * D) / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -1028,15 +1071,26 @@ def vq_ema_bound(N, D, K, weighted):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_vq_assign(N, D, K, seed, timers: list | None = None, tie: bool = False):
+def check_vq_assign(N, D, K, seed, timers: list | None = None, tie: bool = False,
+                    case: str = "random rows and codebook", inputs=None, scale: float = 1.0,
+                    variant: str = "tf32"):
     """The kernel's codes and rows against the plain version's (f32 on the
     card) and the distances in float64: codes equal wherever the best two
     codes are further apart than the margin, the chosen code's distance
-    within the margin of the least everywhere, q the chosen columns; with
-    ``tie``, every code the lower of its two copies. With ``timers``, timed
-    (see :func:`time_kernel`)."""
-    flat, emb = vq_inputs(N, D, K, seed, tie)
-    code, q = kvq.vq_assign(flat, emb)
+    within the margin of the least everywhere, q the chosen columns, two
+    launches bit-equal, the kernel the entry point chose ``variant``; with
+    ``tie``, every code the lower of its two copies. Inputs:
+    :func:`vq_inputs` (with ``tie`` and ``scale``), or ``inputs = (flat,
+    emb)``. The first launch counts the rows the ``tf32`` kernel decided in
+    f32, against every code and by their two best codes.
+    With ``timers``, timed (see :func:`time_kernel`)."""
+    flat, emb = inputs if inputs is not None else vq_inputs(N, D, K, seed, tie, scale)
+    if (*flat.shape, emb.shape[1]) != (N, D, K):
+        raise SystemExit(f"vq_assign: the inputs of {case!r} are {tuple(flat.shape)}, "
+                         f"K {emb.shape[1]}, not {[N, D, K]}")
+    rescored = torch.zeros(2, dtype=torch.int32, device=DEV)
+    code, q = kvq.vq_assign(flat, emb, rescored=rescored)
+    code2, q2 = kvq.vq_assign(flat, emb)
     code_r, _ = kvq.vq_assign_reference(flat, emb)
     torch.cuda.synchronize()
     d64 = ((flat.double() ** 2).sum(1, keepdim=True) - 2 * flat.double() @ emb.double()
@@ -1055,24 +1109,35 @@ def check_vq_assign(N, D, K, seed, timers: list | None = None, tie: bool = False
         bad.append(f"a chosen distance exceeds the least by more than the margin ({worst})")
     if not torch.equal(q, emb.t()[code.long()]):
         bad.append("q is not the chosen codebook columns")
+    if not (torch.equal(code, code2) and torch.equal(q, q2)):
+        bad.append("two launches differ")
     if tie:  # the first column equal to each column
         lowest = (emb.t()[:, None, :] == emb.t()[None, :, :]).all(-1).int().argmax(1)
         if not torch.equal(code.long(), lowest[code.long()]):
             bad.append("a tie did not go to the lower code")
+    chose = kvq.assign_variant(N, D, K)
+    if chose != variant:
+        bad.append(f"the entry point chose {chose}, not {variant}")
     # max_abs_err: the chosen code's float64 distance above the least
-    rec = {"shape": [N, D, K], "case": "ties" if tie else "random rows and codebook",
-           "rows": N, "rows_clear": int(clear.sum()), "codes_equal": int((code == code_r).sum()),
+    rec = {"shape": [N, D, K], "case": "ties" if tie else case, "variant": chose, "rows": N,
+           "rows_rescored": int(rescored[0]), "rows_paired": int(rescored[1]),
+           "rows_clear": int(clear.sum()),
+           "codes_equal": int((code == code_r).sum()),
            "max_abs_err": (chosen - top2[:, 0]).max().item(),
-           "max_margin": margin.max().item(), "ok": not bad}
+           "max_margin": margin.max().item(), "two_launches_bit_equal": "two launches differ"
+           not in bad, "ok": not bad}
     if timers is not None:
         esq = (emb ** 2).sum(0, keepdim=True)
-        rec["bound_ms"], rec["bound_by"] = vq_assign_bound(N, D, K)
+        rec["bound_ms"], rec["bound_by"] = vq_assign_bound(N, D, K, rec["rows_rescored"],
+                                                           rec["rows_paired"])
+        rec["bound_f32_ms"], _ = vq_assign_bound(N, D, K, peak=PEAK_F32_FLOPS)
         time_kernel(rec, "vq_assign", lambda: kvq.vq_assign(flat, emb),
-                lambda: kvq.vq_assign_reference(flat, emb),
-                lambda: torch.addmm(esq, flat, emb, alpha=-2).argmin(1), timers)
+                    lambda: kvq.vq_assign_reference(flat, emb),
+                    lambda: torch.addmm(esq, flat, emb, alpha=-2).argmin(1), timers)
     log("vq_assign", json.dumps(rec))
     if bad:
-        raise SystemExit(f"vq_assign disagrees with its plain version at {[N, D, K]}: {bad}")
+        raise SystemExit(f"vq_assign disagrees with its plain version at {[N, D, K]} "
+                         f"({rec['case']}): {bad}")
     return rec
 
 
@@ -1235,7 +1300,8 @@ def kernel_device_times(timers: list, reps: int = 20) -> None:
             extra = ("ms_by_kernel", "span_ms")
         log(f"{kname} device:", json.dumps({k: rec[k] for k in (
             "shape", "case", "ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
-            "roofline_share") + extra + (("variant",) if "variant" in rec else ())}))
+            "roofline_share") + extra + tuple(k for k in (
+                "variant", "rows_rescored", "rows_paired", "bound_f32_ms") if k in rec)}))
 
 
 def vq_launches() -> dict:
@@ -1963,9 +2029,8 @@ def main() -> int:
         sass = sass_tensor_core_count(kname)
         log(f"sass {kname}: instructions {json.dumps(sass)}"
             + (" (no cuobjdump)" if sass is None else ""))
-        # first_dblock and mc_gated_matmul (bf16) are designed for the
-        # tensor cores; the VQ kernels run f32 on the CUDA cores (FFMA), by
-        # design
+        # first_dblock, mc_gated_matmul (bf16) and vq_assign (TF32) are
+        # designed for the tensor cores; vq_ema adds rows on the CUDA cores
         if kname in TENSOR_CORE_KERNELS and sass is not None \
                 and sass["HMMA"] + sass["HGMMA"] == 0:
             raise SystemExit(f"{kname}: no tensor-core instruction in its SASS")
@@ -1985,16 +2050,31 @@ def main() -> int:
     check_first_dblock_grad((2, 8, 12, 1, 128), seed=8)
     vq_d, vq_k = 64, 512  # the CIFAR10 VQ-VAE's codebook; 8x8 codes per image
     timers = []  # the kernels' device times are read after every timed phase
+    # the main path's traffic: a train step's rows, codes and codebook, after
+    # as many steps as the timed VQ-VAE run takes
+    step_inputs = vq_step_inputs(vqvae_cfg(), TRAIN_WARMUP + TRAIN_STEPS)
     assign_train = check_vq_assign(128 * 64, vq_d, vq_k, seed=20, timers=timers)
+    assign_step = check_vq_assign(128 * 64, vq_d, vq_k, seed=0, timers=timers,
+                                  case="a VQ-VAE train step's rows and codebook",
+                                  inputs=(step_inputs[0], step_inputs[2]["embedding"]))
     assign_eval = check_vq_assign(512 * 64, vq_d, vq_k, seed=21, timers=timers)
     check_vq_assign(17 * 64, vq_d, vq_k, seed=22)  # the digits' ragged batch
     check_vq_assign(1, vq_d, vq_k, seed=23)
     check_vq_assign(4096, vq_d, vq_k, seed=24, tie=True)
+    check_vq_assign(4096, vq_d, vq_k, seed=33, case="near ties",
+                    inputs=vq_near_tie_inputs(4096, vq_d, vq_k, seed=33))
+    check_vq_assign(8192, vq_d, vq_k, seed=34, case="rows and codebook x 30", scale=30.0)
+    check_vq_assign(4096, 256, vq_k, seed=35, case="D 256 (codebook in chunks)")
     check_vq_assign(1000, 8, 16, seed=25)  # a tiny codebook: one ragged tile
-    # the main path's traffic: a train step's rows and codes, after as many
-    # steps as the timed VQ-VAE run takes
-    ema_step = check_vq_ema(128 * 64, vq_d, vq_k, seed=32, timers=timers,
-                            inputs=vq_step_inputs(vqvae_cfg(), TRAIN_WARMUP + TRAIN_STEPS))
+    check_vq_assign(1000, 12, 16, seed=36, case="D 12", variant="ffma")
+    # more tiles than blocks (512 tiles on 132 SMs): the tiles' pipeline, and
+    # the chunked codebook reloaded per tile, with most rows decided in f32
+    check_vq_assign(512 * 64, vq_d, vq_k, seed=37, tie=True)
+    check_vq_assign(512 * 64, vq_d, vq_k, seed=38, case="near ties",
+                    inputs=vq_near_tie_inputs(512 * 64, vq_d, vq_k, seed=38))
+    check_vq_assign(512 * 64, 256, vq_k, seed=39, case="D 256 (codebook in chunks)")
+    ema_step = check_vq_ema(128 * 64, vq_d, vq_k, seed=32, timers=timers, inputs=step_inputs)
+    del step_inputs
     ema_spread = check_vq_ema(128 * 64, vq_d, vq_k, seed=26, timers=timers)
     ema_masked = check_vq_ema(128 * 64, vq_d, vq_k, seed=27, timers=timers, weighted=True)
     ema_collapsed = check_vq_ema(128 * 64, vq_d, vq_k, seed=31, timers=timers,
@@ -2070,7 +2150,8 @@ def main() -> int:
     vq_shapes = ("shape", "case", "ms", "wrapper_ms", "bound_ms", "bound_by", "plain_ms",
                  "library_ms", "max_abs_err")
     for kname, rec, others, library, replaces in (
-            ("vq_assign", assign_train, [assign_eval], "torch.addmm (|e|^2 - 2 x.e) + argmin",
+            ("vq_assign", assign_train, [assign_step, assign_eval],
+             "torch.addmm (|e|^2 - 2 x.e) + argmin, f32 (TF32 off)",
              "mcgm_tpu/ops/pallas_kernels.py:112 at 0303c43 (vq_assign; live XLA form "
              "mcgm_tpu/ops/vq.py:56)"),
             ("vq_ema", ema_step, [ema_spread, ema_masked, ema_collapsed],
@@ -2084,7 +2165,8 @@ def main() -> int:
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"], "library": library,
             "shape": rec["shape"], "case": rec["case"], "wrapper_ms": rec["wrapper_ms"],
             "roofline_share": rec["roofline_share"],
-            **({k: rec[k] for k in ("ms_by_kernel", "span_ms") if k in rec}),
+            **({k: rec[k] for k in ("ms_by_kernel", "span_ms", "bound_f32_ms", "variant",
+                                    "rows_rescored", "rows_paired") if k in rec}),
             "launches_by_path": {"vqvae_step": vqvae_launches["step"][kname],
                                  "vqvae_eval_batch": vqvae_launches["eval"][kname],
                                  "vqvae_trainer": vqvae_launches["trainer"][kname],
@@ -2093,8 +2175,9 @@ def main() -> int:
                                  **{f"pixelcnn_trainer_{m}": c["trainer"][kname]
                                     for m, c in px_launches.items()},
                                  **{f"real_{m}": c[kname] for m, c in real_px_launches.items()}},
-            "other_shapes": [{k: r[k] for k in vq_shapes + ("span_ms",) if k in r}
-                             for r in others]})
+            "other_shapes": [{k: r[k] for k in vq_shapes + (
+                "span_ms", "bound_f32_ms", "variant", "rows_rescored", "rows_paired")
+                if k in r} for r in others]})
     px = px_launches["mcpixelcnn"]
     kernels.append({
         "name": "mc_gated_matmul", "route": "cuda",

@@ -11,11 +11,14 @@ eps)`` updates the three buffers in place: per-code (``w``-weighted) counts
 and sums of rows, their EMA into ``cluster_size`` and ``embedding_mean``,
 Laplace smoothing of the cluster sizes and ``embedding = mean / smoothed``.
 
-On a CUDA tensor each launches its kernel (``csrc/vq_assign.cu``,
-``csrc/vq_ema.cu``, f32 on the CUDA cores; the EMA update is three
-launches over a scratch buffer whose size and layout the ``.cu`` sets) or
-raises, and its ``launches`` gains one per kernel launched (three per
-``vq_ema`` call); on a CPU tensor it computes the plain version (:func:`vq_assign_reference`,
+On a CUDA tensor each launches its kernel (``csrc/vq_assign.cu``: one
+launch, the cross term on the tensor cores in TF32 and an exact f32
+decision of the rows that screen cannot decide, or f32 on the CUDA cores
+for a D that is not a multiple of 8, the ``.cu``'s choice by the shape,
+named by :func:`assign_variant`; ``csrc/vq_ema.cu``: three launches over a
+scratch buffer whose size and layout the ``.cu`` sets) or raises, and its
+``launches`` gains one per kernel launched (three per ``vq_ema`` call); on
+a CPU tensor it computes the plain version (:func:`vq_assign_reference`,
 :func:`vq_ema_reference`), which follows the JAX package's XLA code
 (``mcgm_tpu/ops/vq.py``) op for op. Neither needs a gradient: codes are
 integers and the EMA updates buffers.
@@ -32,6 +35,19 @@ from . import build
 
 ASSIGN, EMA = "vq_assign", "vq_ema"
 MAX_D = 256  # both kernels hold D floats per row in shared memory (vq_ema: D % 4 == 0)
+ASSIGN_VARIANTS = ("ffma", "tf32")  # vq_assign.cu's kernels, by its variant code
+# mcgm_vq_assign(x, emb, idx, q, N, D, K, rescored, stream)
+ASSIGN_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+
+
+def assign_variant(N: int, D: int, K: int) -> str:
+    """The kernel that :func:`vq_assign` launches for rows ``[N, D]`` and a
+    codebook ``[D, K]`` on the card, as the C entry point chooses it
+    (``mcgm_vq_assign_variant``, by the shape alone)."""
+    fn = build.load(ASSIGN).mcgm_vq_assign_variant
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 3
+    return ASSIGN_VARIANTS[fn(N, D, K)]
 
 
 def vq_assign_reference(flat: torch.Tensor, emb: torch.Tensor):
@@ -81,9 +97,12 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def vq_assign(flat: torch.Tensor, emb: torch.Tensor):
+def vq_assign(flat: torch.Tensor, emb: torch.Tensor, rescored: torch.Tensor | None = None):
     """``(code int32 [N], q [N, D])``: the kernel for a CUDA ``flat``, the
-    plain version for a CPU one (see the module doc)."""
+    plain version for a CPU one (see the module doc). ``rescored``, an int32
+    ``[2]`` on the card or None, gains the rows that the ``tf32`` kernel
+    decided in f32: ``[0]`` against every code, ``[1]`` by their two best
+    codes (counts for the checks; the main path passes None)."""
     if flat.device.type == "cpu":
         return vq_assign_reference(flat, emb)
     if flat.device.type != "cuda":
@@ -95,14 +114,20 @@ def vq_assign(flat: torch.Tensor, emb: torch.Tensor):
     K = emb.shape[1]
     _f32("flat", flat, (N, D), flat.device)
     _f32("emb", emb, (D, K), flat.device)
+    if rescored is not None and (rescored.dtype != torch.int32 or rescored.numel() != 2
+                                 or not rescored.is_contiguous()
+                                 or rescored.device != flat.device):
+        raise ValueError(f"vq_assign: rescored must be a contiguous int32 [2] on {flat.device}")
     code = torch.empty(N, dtype=torch.int32, device=flat.device)
     q = torch.empty((N, D), dtype=torch.float32, device=flat.device)
     if N == 0:
         return code, q
-    lib, fn = _fn(ASSIGN, [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    if flat.data_ptr() % 16:  # rows are read 16 bytes at a time
+        flat = flat.clone()
+    lib, fn = _fn(ASSIGN, ASSIGN_ARGTYPES)
     with torch.cuda.device(flat.device):
         err = fn(flat.data_ptr(), emb.data_ptr(), code.data_ptr(), q.data_ptr(), N, D, K,
-                 _stream(flat.device))
+                 None if rescored is None else rescored.data_ptr(), _stream(flat.device))
     build.check(lib, err, ASSIGN)
     vq_assign.launches += 1
     return code, q

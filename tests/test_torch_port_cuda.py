@@ -235,26 +235,63 @@ def test_trainer_epoch_on_the_card(dev, tmp_path):
 VQ_D, VQ_K = 64, 512  # the CIFAR10 VQ-VAE's codebook
 
 
-def _vq_inputs(dev, N, tie=False, seed=0):
+def _vq_inputs(dev, N, tie=False, seed=0, D=VQ_D, scale=1.0):
     g = torch.Generator(device=dev).manual_seed(seed)
-    flat = torch.randn((N, VQ_D), generator=g, device=dev)
+    flat = torch.randn((N, D), generator=g, device=dev)
     if tie:  # every column twice, at shuffled places
-        half = torch.randn((VQ_D, VQ_K // 2), generator=g, device=dev)
+        half = torch.randn((D, VQ_K // 2), generator=g, device=dev)
         emb = torch.cat([half, half], 1)[:, torch.randperm(VQ_K, generator=g, device=dev)]
     else:
-        emb = torch.randn((VQ_D, VQ_K), generator=g, device=dev)
-    return flat, emb.contiguous()
+        emb = torch.randn((D, VQ_K), generator=g, device=dev)
+    return (flat * scale).contiguous(), (emb * scale).contiguous()
 
 
-@pytest.mark.parametrize("N,tie", [(128 * 64, False), (17 * 64, False), (4096, True)])
-def test_vq_assign_matches_plain(dev, N, tie):
+def _vq_case(dev, kind, N):
+    """(flat, emb) of the vq_assign case ``kind`` with ``N`` rows. The near
+    ties and a VQ-VAE train step's rows are the card check's own: rows at
+    the midpoint of two codes moved by 0 to 30 x the cross term's TF32
+    rounding, both signs; the full-width CIFAR10 VQ-VAE's rows and codebook
+    after 13 steps on one batch of 128 (their codes fall on a few; an unused
+    code's column is ~1/eps larger)."""
+    import chip_smoke as cs  # imports neither JAX nor the JAX package
+
+    if kind == "near ties":
+        return cs.vq_near_tie_inputs(N, VQ_D, VQ_K, seed=0)
+    if kind == "step":
+        flat, _, bufs = cs.vq_step_inputs(cs.vqvae_cfg(), 13)
+        assert len(flat) == N
+        return flat, bufs["embedding"]
+    return {"random": lambda: _vq_inputs(dev, N),
+            "ties": lambda: _vq_inputs(dev, N, tie=True),
+            "large norms": lambda: _vq_inputs(dev, N, seed=2, scale=30.0),
+            "D 256": lambda: _vq_inputs(dev, N, seed=3, D=256),
+            "D 12": lambda: _vq_inputs(dev, N, seed=4, D=12)}[kind]()
+
+
+@pytest.mark.parametrize("kind,N,variant", [
+    ("random", 128 * 64, "tf32"),     # a train step's codes
+    ("random", 17 * 64, "tf32"),      # the digits' ragged batch
+    ("ties", 4096, "tf32"),           # every column twice: the lower code
+    ("near ties", 4096, "tf32"),      # the two best within 0 to 30 x the TF32 rounding
+    ("large norms", 8192, "tf32"),    # rows and codebook scaled by 30
+    ("D 256", 4096, "tf32"),          # the codebook in chunks
+    ("step", 128 * 64, "tf32"),       # a VQ-VAE train step's own rows and codebook
+    ("D 12", 1000, "ffma"),           # a D the tensor-core kernel does not take
+    # 512 tiles on 132 SMs: several tiles a block, most rows decided in f32
+    ("ties", 512 * 64, "tf32"),
+    ("near ties", 512 * 64, "tf32"),
+    ("D 256", 512 * 64, "tf32"),      # the chunked codebook reloaded per tile
+])
+def test_vq_assign_matches_plain(dev, kind, N, variant):
     """Codes equal to the plain version's wherever the best two codes are
     further apart than ``1e-5 * (|x|^2 + max|e|^2)`` (f32 sums in another
     order), the chosen code within that margin of the least everywhere, q
-    the chosen columns; ties go to the lower code."""
+    the chosen columns; ties go to the lower code; one launch, through the
+    kernel the C entry point names."""
     from mcgm_tpu_torch.kernels import vq as kvq
 
-    flat, emb = _vq_inputs(dev, N, tie)
+    flat, emb = _vq_case(dev, kind, N)
+    assert kvq.assign_variant(flat.shape[0], flat.shape[1], emb.shape[1]) == variant
     before = kvq.vq_assign.launches
     code, q = kvq.vq_assign(flat, emb)
     assert kvq.vq_assign.launches == before + 1
@@ -267,9 +304,27 @@ def test_vq_assign_matches_plain(dev, N, tie):
     assert torch.equal(code[clear], ref[clear])
     assert (d.gather(1, code.long()[:, None])[:, 0] - top2[:, 0] <= margin).all()
     assert torch.equal(q, emb.t()[code.long()])
-    if tie:
+    if kind == "ties":
         lowest = (emb.t()[:, None, :] == emb.t()[None, :, :]).all(-1).int().argmax(1)
         assert torch.equal(code.long(), lowest[code.long()])
+
+
+@pytest.mark.parametrize("kind,N", [("random", 128 * 64), ("near ties", 4096), ("ties", 4096),
+                                    ("near ties", 512 * 64), ("D 256", 512 * 64)])
+def test_vq_assign_two_launches_are_bit_equal(dev, kind, N):
+    """No order in the search changes from run to run: two launches on the
+    same inputs give bit-equal codes and rows; the rows the screen left to
+    exact f32 distances are counted, against every code and by their two
+    best codes (all rows where every column is twice)."""
+    from mcgm_tpu_torch.kernels import vq as kvq
+
+    flat, emb = _vq_case(dev, kind, N)
+    rescored = torch.zeros(2, dtype=torch.int32, device=dev)
+    a = kvq.vq_assign(flat, emb, rescored=rescored)
+    b = kvq.vq_assign(flat, emb)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    n = int(rescored.sum())
+    assert n == len(flat) if kind == "ties" else 0 < n < len(flat)
 
 
 @pytest.mark.parametrize("N,weighted,codes", [
