@@ -137,6 +137,28 @@ Phases, each of which exits non-zero on failure:
 16. real (continued): MCPixelCNN and CPixelCNN on the codes of the real
     digits' VQ-VAE, ``REAL_PIXELCNN_EPOCHS`` epochs each, NLL per epoch side
     by side, one ``generate`` grid each.
+17. glow (after ``pixelcnn:``, on the CIFAR10-shaped files): MCGlow and
+    CGlow at the CIFAR10 width (hidden 512, K 16, L 3, affine, LU, 10
+    modes, B=128, bf16 convs, ``remat_flows``) from seed 0: DDI on 8
+    seeded batches, then 3 + 10 steps through ``mc_gated_matmul`` and
+    through its plain version in turns from the DDI'd state and one noise
+    draw (images/s, bits/dim; 96 launches a step: 48 in the forward, 48 in
+    the recompute), the first run of each path held to the other (bits/dim
+    and every parameter within ``TRAIN_TOL * max|plain|``); one eval batch
+    of 512 (48 launches); the eval forward with random zero convs held to
+    its plain version (``SLICE_TOL``); ``reverse(forward(x))`` against x
+    within ``GLOW_RECON_TOL``; ``generate`` samples/s over a sweep of
+    ``GLOW_SWEEP`` in chunks of ``GLOW_CHUNK`` (median of 3); then
+    ``cli.train`` for 2 epochs of ``GLOW_STEPS`` steps (DDI first, each
+    epoch evaluated on ``GLOW_EVAL_BATCHES`` batches), ``resume_mode=1`` to
+    epoch 3 with the state checked equal, and ``cli.test_model``; one step
+    of each path under ``torch.profiler`` at the end (``glow profile:``:
+    launches a step, busy share, category ms). ``mc_gated_matmul``'s
+    checks (phase 14) gain Glow's three shapes, timed, with and without
+    the gate, and the widened backward (``dalpha``, ``dbeta``);
+18. real (continued): MCGlow and CGlow on the digits, ``REAL_GLOW_EPOCHS``
+    epochs each, bits/dim per epoch side by side, and the five
+    ``cli.sample`` calls of phase 9 on each ``_best``.
 
 The last lines are the script's wall time, the card's name and power limit
 as ``nvidia-smi`` gives them, one JSON object listing every kernel, and
@@ -184,6 +206,7 @@ from mcgm_tpu_torch.models import build_model
 from mcgm_tpu_torch.models.pixelcnn import sample_codes, sample_codes_incremental
 from mcgm_tpu_torch.ops.layers import fold_pool
 from mcgm_tpu_torch.report.logger import Logger
+from mcgm_tpu_torch.train.loop import apply_family_overrides
 from mcgm_tpu_torch.train.optim import make_optimizer
 from mcgm_tpu_torch.train.state import TrainState, make_gan_train_step, make_train_step
 from mcgm_tpu_torch.utils import card_name_and_limit, save, vis_path
@@ -236,6 +259,19 @@ SAMPLE_CHUNK, EXACT_GRIDS, EXACT_MARGIN = 1000, 16, 1e-3
 # first PIXELCNN_EVAL_BATCHES batches of the train split (the whole split is
 # 391 batches of ~25 ms of host time each)
 PIXELCNN_STEPS, PIXELCNN_EVAL_BATCHES, REAL_PIXELCNN_EPOCHS = 20, 40, 10
+# Glow at the CIFAR10 width (hidden 512, K 16, L 3): its coupling nets' 1x1
+# at P = 256, 64, 16 positions (levels 1-3), 48 launches per forward; the
+# trainer cut to GLOW_STEPS steps per epoch, each evaluated on the first
+# GLOW_EVAL_BATCHES batches of the train split; reverse(forward(x)) within
+# GLOW_RECON_TOL of x (f32 flows, bf16 coupling nets run the same both ways);
+# generate timed over a sweep of GLOW_SWEEP in chunks of GLOW_CHUNK
+GLOW_POSITIONS, GLOW_PER_FORWARD = (256, 64, 16), 48
+GLOW_STEPS, GLOW_EVAL_BATCHES, REAL_GLOW_EPOCHS = 20, 8, 10
+GLOW_RECON_TOL, GLOW_SWEEP, GLOW_CHUNK = 1e-3, 400, 128
+# a Glow's reverse divides by s = sigmoid(log_s + 2), so a sample can
+# overflow to NaN (the reference's create filters them): at least this share
+# of a 10,000-image dump of a digits Glow is finite
+GLOW_FINITE_MIN = 0.5
 
 
 def log(*args):
@@ -1390,12 +1426,15 @@ def run_vae(name_limit: str, data_dir: str, out_dir: str):
     return path_counts, runs
 
 
-def run_sample_calls(model, ctrl, base, out_dir, tag, channels, bad) -> list:
+def run_sample_calls(model, ctrl, base, out_dir, tag, channels, bad,
+                     finite_min: float = 1.0) -> list:
     """``cli.sample`` for each of ``WORKFLOW_CASES`` on ``tag``'s ``_best``:
-    every dump finite, in [0, 255] and what the call returned, every PNG
-    read back with the port's own decoder and its whole shape (channels
-    too) checked against its grid. Returns one record per call; appends
-    what failed to ``bad``."""
+    at least ``finite_min`` of every dump's images finite (all of them but
+    for a Glow, which may draw NaN images: its CIFAR10 create keeps the
+    finite ones), the finite values in [0, 255] and the dump what the call
+    returned, every PNG read back with the port's own decoder and its whole
+    shape (channels too) checked against its grid. Returns one record per
+    call; appends what failed to ``bad``."""
     rows = []
     for wf, extra, dump, images, grids in WORKFLOW_CASES:
         t0 = time.perf_counter()
@@ -1407,10 +1446,15 @@ def run_sample_calls(model, ctrl, base, out_dir, tag, channels, bad) -> list:
                "images_per_s": images / dt, "png": []}
         if dump:
             arr = np.load(os.path.join(out_dir, "npy", f"{dump}_{tag}.npy"))
-            rec["dump"] = list(arr.shape)
-            if (arr.shape != (10_000, channels, 32, 32) or not np.isfinite(arr).all()
-                    or arr.min() < 0 or arr.max() > 255 or not np.array_equal(arr, out)):
-                bad.append(f"{model} {wf}: dump {arr.shape} [{arr.min()}, {arr.max()}]")
+            finite = np.isfinite(arr).all(axis=(1, 2, 3))
+            kept = arr[finite]
+            rec["dump"], rec["finite_share"] = list(arr.shape), float(finite.mean())
+            if (arr.shape != (10_000, channels, 32, 32) or finite.mean() < finite_min
+                    or not kept.size or kept.min() < 0 or kept.max() > 255
+                    or not np.array_equal(arr, out, equal_nan=True)):
+                bad.append(f"{model} {wf}: dump {arr.shape}, finite share {finite.mean()}, "
+                           f"[{kept.min() if kept.size else None}, "
+                           f"{kept.max() if kept.size else None}]")
         for name, n, nrow in grids:
             path = vis_path({"output_dir": out_dir}, f"{name.format(tag=tag)}.png")
             png, want = read_png(path), _grid_shape(n, nrow, channels)
@@ -1709,6 +1753,53 @@ def check_mc_gated_matmul_grad(seed):
         raise SystemExit(f"mc_gated_matmul's gradient disagrees: {json.dumps(rec)}")
 
 
+def check_mc_gated_matmul_affine_grad(seed, gate: bool):
+    """The widened backward at Glow's level-2 shape (B=128, P = 64, K = N =
+    512, bf16, ReLU, alpha and beta requiring gradients): every gradient of
+    the autograd Function against the plain version's autograd; ``dx`` and
+    ``dw`` (bf16) within ``KERNEL_TOL * max``, ``dalpha`` / ``dbeta`` (f32
+    sums in another order) within ``1e-4 * max``. The upstream gradient is 0
+    where the pre-activation is within ``1e-3 * max`` of 0: there the
+    kernel's f32 sums, in another order, may take the ReLU's mask the other
+    way."""
+    x, w, alpha, beta, ind, cb = mc_inputs(128, 512, 512, 64, 10, torch.bfloat16, seed)
+    if not gate:
+        ind = cb = None
+    pre = torch.einsum("nk,bkp->bnp", w.float(), x.float()) * alpha[:, None] + beta[:, None]
+    r = torch.randn((128, 512, 64), device=DEV) * (pre.abs() > 1e-3 * pre.abs().max())
+    grads = []
+    for fn in (kmc.mc_gated_matmul, kmc.mc_gated_matmul_reference):
+        leaves = [t.clone().requires_grad_() for t in (x, w, alpha, beta)]
+        (fn(*leaves, ind, cb, True).float() * r).sum().backward()
+        grads.append([t.grad.float() for t in leaves])
+    torch.cuda.synchronize()
+    rec = {name: {"max_abs_err": (a - b).abs().max().item(), "max_abs": b.abs().max().item(),
+                  "tol": tol}
+           for name, a, b, tol in zip(("dx", "dw", "dalpha", "dbeta"), grads[0], grads[1],
+                                      (KERNEL_TOL, KERNEL_TOL, 1e-4, 1e-4))}
+    log(f"mc_gated_matmul affine grad (Glow level 2, gate {gate}):", json.dumps(rec))
+    if any(not r["max_abs_err"] <= r["tol"] * r["max_abs"] for r in rec.values()):
+        raise SystemExit(f"mc_gated_matmul's widened gradient disagrees: {json.dumps(rec)}")
+
+
+def check_mc_gated_matmul_glow(timers: list) -> list:
+    """Glow's coupling nets' gated 1x1 at B=128 (K = N = 512, ReLU): the
+    three levels (P = 256, 64, 16) with MCGlow's gate, timed; the same
+    without the gate (CGlow) and an eval batch of 512 at level 1, checked;
+    the widened backward with and without the gate."""
+    timed = [check_mc_gated_matmul(128, 512, 512, P, True, 60 + i,
+                                   f"Glow level {i + 1}, MCGlow (B=128, P = {P})", timers)
+             for i, P in enumerate(GLOW_POSITIONS)]
+    for i, P in enumerate(GLOW_POSITIONS):
+        check_mc_gated_matmul(128, 512, 512, P, True, 63 + i,
+                              f"Glow level {i + 1}, CGlow: no gate", gate=False)
+    check_mc_gated_matmul(512, 512, 512, 256, True, 66, "Glow level 1, eval batch of 512")
+    check_mc_gated_matmul(17, 512, 512, 256, True, 67, "Glow level 1, the digits' last batch")
+    check_mc_gated_matmul_affine_grad(68, gate=True)
+    check_mc_gated_matmul_affine_grad(69, gate=False)
+    return timed
+
+
 def check_mc_gated_matmul_all(timers: list) -> tuple[dict, list]:
     """Every case of the PixelCNN's calls; the four timed shapes are the
     sampler's per-position head and residual (M = 1,000 grids) and an eval
@@ -2001,6 +2092,320 @@ def run_real_pixelcnn(name_limit: str, base: list, out_dir: str):
     return launches, runs
 
 
+# ------------------------------------------------------------------ Glow
+def glow_cfg(name: str) -> dict:
+    """The CIFAR10 configuration of ``name`` (hidden 512, K 16, L 3, affine,
+    LU, rate 0.5) with the Glow trainer's settings and 10 modes."""
+    cfg = apply_family_overrides(process_control({
+        "data_name": "CIFAR10", "model_name": name, "control": {"controller_rate": "0.5"}}))
+    cfg["classes_size"] = 10
+    return cfg
+
+
+def glow_per_step(cfg: dict) -> int:
+    """``mc_gated_matmul`` launches per train step: 48 in the forward, and
+    48 more where ``remat_flows`` recomputes each flow in the backward."""
+    return GLOW_PER_FORWARD * (2 if cfg["glow"].get("remat_flows", True) else 1)
+
+
+def glow_state(cfg: dict, state: dict, plain: bool) -> TrainState:
+    """The model holding ``state`` on the card, through the kernel or its
+    plain version, with the Glow trainer's optimizer (Adam 3e-4, clip 1,
+    16-step warmup)."""
+    model = build_model(cfg, DEV).use_plain_kernels(plain)
+    model.load_state_dict(state)
+    return TrainState(model, make_optimizer(model.parameters(), cfg, grad_clip=cfg["grad_clip"]))
+
+
+def glow_steps(ts, batch, noise, step, steps: int, warmup: int) -> tuple[dict, dict]:
+    """``warmup`` steps, then ``steps`` timed and counted; returns the
+    record and the first step's gradients (before the clip)."""
+    first = {}
+
+    def grab(*_):
+        if not first:
+            first.update({n: p.grad.clone() for n, p in ts.model.named_parameters()
+                          if p.grad is not None})
+
+    hook = ts.opt.register_step_pre_hook(grab)
+    for _ in range(warmup):
+        step(ts, batch, noise=noise)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    losses = [step(ts, batch, noise=noise)["loss"] for _ in range(steps)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    hook.remove()
+    return ({"images_per_s": batch["img"].shape[0] * steps / dt,
+             "ms_per_step": dt / steps * 1e3, "launches": counts()["mc_gated_matmul"],
+             "bits_per_dim": [float(x) for x in losses]}, first)
+
+
+def glow_compare(ts_k, ts_p, grads_k, grads_p, cfg: dict, n_steps: int) -> dict:
+    """The kernel path against the plain path after ``n_steps`` steps from
+    one state: the first step's gradients within ``TRAIN_TOL * max|plain|``
+    per tensor (a tensor with none on the plain path has none on the
+    kernel's either), every parameter within ``TRAIN_TOL * max|plain|``
+    plus ``allowance``, twice the most that the warmed-up Adam updates can
+    move a weight (a gradient near 0 may take either sign on either path)."""
+    allowance = 2 * cfg["lr"] * sum(min(1.0, (t + 1) / cfg["lr_warmup_steps"])
+                                    for t in range(n_steps))
+    grad_ratio, zero_mismatch = 0.0, []
+    for k, b in grads_p.items():
+        top, err = b.abs().max().item(), (grads_k[k] - b).abs().max().item()
+        if top == 0:
+            if err:
+                zero_mismatch.append(k)
+            continue
+        grad_ratio = max(grad_ratio, err / top)
+    param_ratio = 0.0
+    sk = ts_k.model.state_dict()
+    for k, b in ts_p.model.state_dict().items():
+        err = (sk[k].float() - b.float()).abs().max().item()
+        param_ratio = max(param_ratio, err / (TRAIN_TOL * b.float().abs().max().item()
+                                              + allowance))
+    return {"first_grad_worst_ratio": grad_ratio, "zero_grads_differ": zero_mismatch,
+            "parameter_worst_share_of_tol": param_ratio, "allowance": allowance,
+            "ok": grad_ratio <= TRAIN_TOL and not zero_mismatch and param_ratio <= 1.0}
+
+
+def glow_sweep(model, n: int, chunk: int, seed: int) -> tuple[float, torch.Tensor]:
+    """``generate`` over the class sweep of ``n`` in chunks of ``chunk``, z
+    from one generator; returns the seconds and the images."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    C = torch.arange(n, device=DEV) % model.num_mode
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = [model.generate(C[i:i + chunk], rng=g) for i in range(0, n, chunk)]
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, torch.cat(out)
+
+
+def glow_kernel_vs_plain_eval(model, batch, noise) -> dict:
+    """The eval forward through the kernel and through its plain version on
+    a copy of ``model`` whose zero convs hold N(0, 1e-2) weights (after a
+    few steps they are still near 0, so the coupling nets barely reach the
+    output): z within ``SLICE_TOL * max|plain|`` per level, and the loss."""
+    from mcgm_tpu_torch.models.glow import ZeroConv2d
+
+    net = copy.deepcopy(model)
+    g = torch.Generator(device=DEV).manual_seed(11)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, ZeroConv2d):
+                m.conv.weight.normal_(0.0, 1e-2, generator=g)
+        got = net.use_plain_kernels(False)(batch, noise=noise)
+        want = net.use_plain_kernels(True)(batch, noise=noise)
+    torch.cuda.synchronize()
+    rec = {"loss": {"kernel": float(got["loss"]), "plain": float(want["loss"])},
+           "z_max_abs_err": [(a - b).abs().max().item() for a, b in zip(got["z"], want["z"])],
+           "z_max_abs": [b.abs().max().item() for b in want["z"]]}
+    rec["ok"] = (all(e <= SLICE_TOL * m for e, m in zip(rec["z_max_abs_err"], rec["z_max_abs"]))
+                 and abs(rec["loss"]["kernel"] - rec["loss"]["plain"])
+                 <= SLICE_TOL * abs(rec["loss"]["plain"]))
+    return rec
+
+
+def run_glow(name_limit: str, data_dir: str, out_dir: str):
+    """MCGlow and CGlow at the CIFAR10 width on seeded CIFAR10-shaped
+    images (the same for both): DDI on 8 batches; 3 + 10 steps through the
+    kernel and through its plain version in turns from the DDI'd state,
+    the first run of each held to the other (losses, parameters after);
+    one eval batch of 512 (48 launches); the eval forward held to its plain
+    version; ``reverse(forward(x))`` against ``x``; ``generate`` samples/s
+    over a sweep of ``GLOW_SWEEP``; then ``cli.train`` (2 epochs of
+    ``GLOW_STEPS`` steps, DDI first), ``resume_mode=1`` to epoch 3 with the
+    state checked equal, and ``cli.test_model``."""
+    g = torch.Generator(device=DEV).manual_seed(0)
+    n_ddi = 8 * 128
+    big = {"img": torch.rand((n_ddi, 32, 32, 3), generator=g, device=DEV) * 2 - 1,
+           "label": torch.arange(n_ddi, device=DEV) % 10}
+    big_noise = torch.rand((n_ddi, 32, 32, 3), generator=g, device=DEV)
+    batch = {k: v[:128] for k, v in big.items()}
+    noise = torch.rand((128, 32, 32, 3), generator=g, device=DEV)
+    step = make_train_step(skip_nonfinite=True)
+    base = ["--data_name", "CIFAR10", "--data_dir", data_dir, "--output_dir", out_dir,
+            "--device", str(DEV)]
+    runs, bad, launches, profiles = {}, [], {}, {}
+    for name, ctrl in (("mcglow", "0.5"), ("cglow", "None")):
+        cfg = glow_cfg(name)
+        per_step = glow_per_step(cfg)
+        model = build_model(cfg, DEV)
+        with torch.no_grad():
+            model(big, train=True, ddi=True, noise=big_noise)
+        state = {k: t.clone() for k, t in model.state_dict().items()}
+        del model
+        torch.cuda.reset_peak_memory_stats()
+        steps, first = {False: [], True: []}, {}
+        for plain in (False, True, True, False):
+            ts = glow_state(cfg, state, plain)
+            res, grads = glow_steps(ts, batch, noise, step, TRAIN_STEPS, TRAIN_WARMUP)
+            want = 0 if plain else per_step * TRAIN_STEPS
+            if res["launches"] != want or not all(math.isfinite(x) for x in res["bits_per_dim"]):
+                bad.append(f"{name} {'plain' if plain else 'kernel'} path: {res}, want {want}")
+            steps[plain].append(res)
+            first.setdefault(plain, (ts, grads))
+            log(f"glow {name} {'plain' if plain else 'kernel'}:", json.dumps(res))
+        (ts_k, grads_k), (ts_p, grads_p) = first[False], first[True]
+        cmp = glow_compare(ts_k, ts_p, grads_k, grads_p, cfg, TRAIN_WARMUP + TRAIN_STEPS)
+        del grads_k, grads_p, first
+        lk, lp = steps[False][0]["bits_per_dim"][-1], steps[True][0]["bits_per_dim"][-1]
+        cmp["bits_per_dim"] = {"kernel": lk, "plain": lp}
+        if not (abs(lk - lp) <= TRAIN_TOL * abs(lp) and cmp["ok"]):
+            bad.append(f"{name} kernel vs plain after {TRAIN_WARMUP + TRAIN_STEPS} steps: {cmp}")
+        model = ts_k.model
+        # one eval batch at the eval batch size: 48 launches
+        Be = cfg["batch_size"]["test"]
+        ev_batch = {"img": torch.rand((Be, 32, 32, 3), generator=g, device=DEV) * 2 - 1,
+                    "label": torch.arange(Be, device=DEV) % 10}
+        zero_counts()
+        with torch.no_grad():
+            ev = model(ev_batch, rng=g)
+        torch.cuda.synchronize()
+        eval_counts = counts()
+        if eval_counts["mc_gated_matmul"] != GLOW_PER_FORWARD or not torch.isfinite(ev["loss"]):
+            bad.append(f"{name} eval batch: {eval_counts}, loss {float(ev['loss'])}")
+        eval_cmp = glow_kernel_vs_plain_eval(model, batch, noise)
+        if not eval_cmp["ok"]:
+            bad.append(f"{name} eval forward kernel vs plain: {eval_cmp}")
+        with torch.no_grad():
+            z = model(batch, noise=noise)["z"]
+            recon = model.reverse(z, batch["label"], reconstruct=True)
+        x = torch.clamp(batch["img"] * 0.5 + noise / 256.0, -0.5, 0.5) * 2.0
+        recon_err = (recon - x).abs().max().item()
+        if not recon_err <= GLOW_RECON_TOL:
+            bad.append(f"{name} reverse(forward(x)) off by {recon_err}")
+        zero_counts()
+        sweeps = [glow_sweep(model, GLOW_SWEEP, GLOW_CHUNK, seed) for seed in range(3)]
+        sweep_counts = counts()
+        chunks = -(-GLOW_SWEEP // GLOW_CHUNK)
+        if sweep_counts["mc_gated_matmul"] != 3 * chunks * GLOW_PER_FORWARD:
+            bad.append(f"{name} generate: launches {sweep_counts}")
+        finite = float(torch.isfinite(sweeps[0][1]).all(dim=(1, 2, 3)).float().mean())
+        sweep_s = statistics.median(s for s, _ in sweeps)
+        # the trainer, as a user runs it
+        argv = base + ["--model_name", name, "--control_name", ctrl]
+        zero_counts()
+        t0 = time.perf_counter()
+        (exp,) = cli_train.main(argv + ["--num_epochs", str(TRAINER_EPOCHS)],
+                                limit_train_batches=GLOW_STEPS,
+                                limit_eval_batches=GLOW_EVAL_BATCHES)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        trainer = counts()
+        B = exp.cfg["batch_size"]["train"]
+        n_steps = sum(st["train_steps"] for st in exp.epoch_stats)
+        evals = sum(-(-st["eval_images"] // B) for st in exp.epoch_stats)
+        want = {"first_dblock": 0, "vq_assign": 0, "vq_ema": 0,
+                "mc_gated_matmul": per_step * n_steps + GLOW_PER_FORWARD * evals}
+        if trainer != want:
+            bad.append(f"{name} trainer: launches {trainer}, want {want}")
+        saved = to_numpy(exp.state_dict())
+        (exp3,) = cli_train.main(argv + ["--num_epochs", str(TRAINER_EPOCHS + 1),
+                                         "--resume_mode", "1"],
+                                 limit_train_batches=GLOW_STEPS,
+                                 limit_eval_batches=GLOW_EVAL_BATCHES)
+        resumed = exp3.resumed or {}
+        mismatch = _state_mismatch(saved, resumed["state"]) if resumed else ["nothing resumed"]
+        if mismatch:
+            bad.append(f"{name}: resumed state differs at {mismatch[:8]}")
+        (tested,) = cli_test_model.main(argv, limit_eval_batches=GLOW_EVAL_BATCHES)
+        hist = _history(exp3, ("train/Loss", "test/Loss"))
+        if any(len(v) != TRAINER_EPOCHS + 1 or not all(math.isfinite(x) for x in v)
+               for v in hist.values()):
+            bad.append(f"{name}: bits/dim not finite every epoch: {hist}")
+        stats = exp.epoch_stats + exp3.epoch_stats
+        launches[name] = {"step": steps[False][0]["launches"], "eval_batch": eval_counts,
+                          "generate_sweeps": sweep_counts, "trainer": trainer}
+        runs[name] = {
+            "parameters": sum(p.numel() for p in model.parameters()),
+            "compute_dtype": str(model.compute_dtype), "batch": 128,
+            "remat_flows": bool(cfg["glow"].get("remat_flows", True)),
+            "kernel_images_per_s": [r["images_per_s"] for r in steps[False]],
+            "plain_images_per_s": [r["images_per_s"] for r in steps[True]],
+            "kernel_ms_per_step": [r["ms_per_step"] for r in steps[False]],
+            "plain_ms_per_step": [r["ms_per_step"] for r in steps[True]],
+            "bits_per_dim": steps[False][0]["bits_per_dim"],
+            "launches_per_step": steps[False][0]["launches"] / TRAIN_STEPS,
+            "kernel_vs_plain": cmp, "eval_kernel_vs_plain": eval_cmp,
+            "eval_batch_bits_per_dim": float(ev["loss"]),
+            "reconstruction_max_abs_err": recon_err,
+            "generate_samples_per_s": GLOW_SWEEP / sweep_s,
+            "generate_seconds": [s for s, _ in sweeps], "generate_finite_share": finite,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "trainer": {"wall_seconds": wall, "steps": n_steps, "eval_batches": evals,
+                        "train_images_per_s": [st["train_images_per_s"] for st in stats],
+                        "eval_seconds": [st["eval_seconds"] for st in stats],
+                        "bits_per_dim_by_epoch": hist["test/Loss"],
+                        "train_bits_per_dim_by_epoch": hist["train/Loss"],
+                        "test_model": dict(tested.mean), "resumed_state_equal": not mismatch}}
+        log(f"glow {name}:", json.dumps(runs[name]))
+
+        profiles[name] = (ts_k, ts_p)
+    log("glow:", json.dumps({"card": name_limit, "launches": launches}))
+    if bad:
+        raise SystemExit("glow failed: " + "; ".join(bad))
+
+    def profile(prof_dir):  # one step of each path per model, after every timed phase
+        out = {}
+        run_step = functools.partial(step, noise=noise)
+        for name, pair in profiles.items():
+            for path, ts in zip(("kernel", "plain"), pair):
+                zero_counts()
+                rec = train_profile_single(ts, batch, run_step, prof_dir, f"glow_{name}_{path}")
+                out[f"{name}_{path}"] = dict(rec, mc_gated_matmul_launches=counts()[
+                    "mc_gated_matmul"])
+        return out
+
+    return launches, runs, profile
+
+
+def run_real_glow(name_limit: str, base: list, out_dir: str):
+    """MCGlow and CGlow at full width on the real digits (32x32x1),
+    ``REAL_GLOW_EPOCHS`` epochs each (DDI first), bits/dim per epoch on the
+    train split side by side, and the five ``cli.sample`` calls on each
+    ``_best``."""
+    runs, bad, launches = {}, [], {}
+    for name, ctrl in (("mcglow", "0.5"), ("cglow", "None")):
+        argv = base + ["--model_name", name, "--control_name", ctrl]
+        zero_counts()
+        t0 = time.perf_counter()
+        (exp,) = cli_train.main(argv + ["--num_epochs", str(REAL_GLOW_EPOCHS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        trainer = counts()
+        B = exp.cfg["batch_size"]["train"]
+        steps = sum(st["train_steps"] for st in exp.epoch_stats)
+        evals = sum(-(-st["eval_images"] // B) for st in exp.epoch_stats)
+        want = {"first_dblock": 0, "vq_assign": 0, "vq_ema": 0,
+                "mc_gated_matmul": glow_per_step(exp.cfg) * steps + GLOW_PER_FORWARD * evals}
+        if trainer != want:
+            bad.append(f"{name}: launches {trainer}, want {want}")
+        hist = exp.logger.history.get("test/Loss", [])
+        if len(hist) != REAL_GLOW_EPOCHS or not all(math.isfinite(x) for x in hist):
+            bad.append(f"{name}: bits/dim {hist}")
+        zero_counts()
+        wf = run_sample_calls(name, ctrl, base, out_dir, exp.tag, 1, bad,
+                              finite_min=GLOW_FINITE_MIN)
+        launches[name] = {"trainer": trainer, "workflows": counts()}
+        runs[name] = {"run_wall_seconds": wall, "steps": steps, "bits_per_dim_by_epoch": hist,
+                      "train_bits_per_dim_by_epoch": exp.logger.history.get("train/Loss", []),
+                      "skipped_share_by_epoch": exp.logger.history.get("train/SkipUpd", []),
+                      "train_images_per_s": [st["train_images_per_s"]
+                                             for st in exp.epoch_stats],
+                      "workflows": wf, "launches": launches[name]}
+    log("real: epoch | MCGlow bits/dim | CGlow bits/dim")
+    for e in range(REAL_GLOW_EPOCHS):
+        log(f"real: {e + 1} | " + " | ".join(
+            f"{runs[m]['bits_per_dim_by_epoch'][e]:.5f}"
+            if e < len(runs[m]["bits_per_dim_by_epoch"]) else "-" for m in ("mcglow", "cglow")))
+    log("real glow:", json.dumps({"card": name_limit, **runs}))
+    if bad:
+        raise SystemExit("real glow failed: " + "; ".join(bad))
+    return launches, runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -2084,6 +2489,7 @@ def main() -> int:
     check_vq_ema(3000, 8, 16, seed=30, weighted=True)
     log(f"vq_ema: {ema_kernels()} kernel launches a call")  # before any path is counted
     mc_head, mc_others = check_mc_gated_matmul_all(timers)
+    mc_glow = check_mc_gated_matmul_glow(timers)
 
     serve_launches, _, g_then_d = run_slice(name_limit)
     torch.backends.cudnn.allow_tf32 = True  # torch's default, as the bench script runs
@@ -2099,12 +2505,15 @@ def main() -> int:
         # on the codes of the VQ-VAE just trained (its _best in work/vqvae)
         px_launches, _, profile_px = run_pixelcnn(name_limit, data_dir,
                                                   os.path.join(work, "vqvae"))
+        glow_launches, _, profile_glow = run_glow(name_limit, data_dir,
+                                                  os.path.join(work, "glow"))
         shutil.rmtree(work, ignore_errors=True)
         cgan_launches, _, profile_cgan = run_cgan(name_limit)
         real_launches, _, (base, out_dir) = run_real(name_limit, work)
         wf_launches, _ = run_workflows(name_limit, base, out_dir)
         real_vae_launches, _ = run_real_vae(name_limit, base, out_dir)
         real_px_launches, _ = run_real_pixelcnn(name_limit, base, out_dir)
+        real_glow_launches, _ = run_real_glow(name_limit, base, out_dir)
         # last, so that no timed run follows a profiler session
         rec = profile_cgan(args.profile or os.path.join(work, "profile"))
         log("cgan profile:", json.dumps({k: rec[k] for k in (
@@ -2113,6 +2522,10 @@ def main() -> int:
         log("vqvae profile:", json.dumps(profile_vqvae(args.profile
                                                        or os.path.join(work, "profile"))))
         kernel_device_times(timers)
+        # after the kernels' device times: a session of ~53,000 launches left
+        # the next short sessions missing events
+        log("glow profile:", json.dumps(profile_glow(args.profile
+                                                     or os.path.join(work, "profile"))))
         # last: one sampler chunk is ~20,000 launches under the profiler
         log("pixelcnn profile:", json.dumps(profile_px(args.profile
                                                        or os.path.join(work, "profile"))))
@@ -2202,9 +2615,14 @@ def main() -> int:
             "real_mcpixelcnn": real_px_launches["mcpixelcnn"]["mc_gated_matmul"],
             "real_cpixelcnn": real_px_launches["cpixelcnn"]["mc_gated_matmul"],
             "pixelcnn_workflows": sum(c["workflows"]["mc_gated_matmul"]
-                                      for c in px_launches.values())},
+                                      for c in px_launches.values()),
+            **{f"glow_{m}_{path}": (c[path] if path == "step" else c[path]["mc_gated_matmul"])
+               for m, c in glow_launches.items()
+               for path in ("step", "eval_batch", "generate_sweeps", "trainer")},
+            **{f"real_{m}_{path}": c[path]["mc_gated_matmul"]
+               for m, c in real_glow_launches.items() for path in ("trainer", "workflows")}},
         "other_shapes": [{k: r[k] for k in vq_shapes + ("variant", "roofline_share")}
-                         for r in mc_others]})
+                         for r in mc_others + mc_glow]})
     log(f"wall: {time.perf_counter() - t_start:.1f} s for the whole script")
     log(name_limit)
     log(json.dumps({"kernels": kernels}))

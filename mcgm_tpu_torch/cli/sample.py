@@ -2,8 +2,8 @@
 ``mcgm_tpu/cli/sample.py``):
 
     python -m mcgm_tpu_torch.cli.sample {generate,transit,create} \
-        --data_name MNIST --model_name mcgan [--control_name 0.5] [--save_npy true] \
-        [--device cpu]
+        --data_name MNIST --model_name {mcgan,cgan,mcvae,cvae,mcpixelcnn,cpixelcnn,mcglow,cglow} \
+        [--control_name 0.5] [--save_npy true] [--device cpu]
 
 For each seed it reads the dataset's processed files for the class count,
 loads ``{tag}_best`` (written by the port's trainer or by the JAX package;

@@ -4,6 +4,9 @@
     python -m mcgm_tpu_torch.cli.test_model --data_name MNIST --model_name classifier \
         --control_name None [--device cpu]
 
+(any model ``cli.train`` takes; a Glow's test pass is its bits/dim on the
+train split, its noise from a generator seeded with the seed).
+
 For each seed: build the experiment, load ``{tag}_best`` (written by either
 package), run the trainer's test pass and save ``{cfg, epoch, logger}`` to
 ``{output_dir}/result/{tag}.pkl``. It runs on the card unless ``--device

@@ -1,11 +1,12 @@
 """Training entry point of the port (mcgan, cgan, mcvae, cvae, vqvae,
-mcpixelcnn, cpixelcnn and the classifier):
+mcpixelcnn, cpixelcnn, mcglow, cglow and the classifier):
 
     python -m mcgm_tpu_torch.cli.train --data_name CIFAR10 --model_name mcgan \
         [--control_name 0.5] [--num_epochs N] [--resume_mode 1] [--device cpu]
 
-(``--control_name None`` for cgan, cvae, vqvae, cpixelcnn and the
-classifier.) A PixelCNN trains on the codes of the VQ-VAE of the same seed
+(``--control_name None`` for cgan, cvae, vqvae, cpixelcnn, cglow and the
+classifier.) A Glow starting from scratch first runs ActNorm's
+data-dependent init over the first ``num_init_batches`` (8) train batches. A PixelCNN trains on the codes of the VQ-VAE of the same seed
 and data (``--ae_name vqvae``, the default), whose ``_best`` checkpoint
 must exist: train ``--model_name vqvae`` first.
 

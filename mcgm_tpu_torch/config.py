@@ -75,7 +75,8 @@ _DATA_SHAPES = {
 _GAN_FAMILY = ("cgan", "mcgan")
 _VAE_FAMILY = ("cvae", "mcvae")
 _PIXELCNN_FAMILY = ("cpixelcnn", "mcpixelcnn")
-_PORTED = _GAN_FAMILY + _VAE_FAMILY + _PIXELCNN_FAMILY + ("vqvae", "classifier")
+_GLOW_FAMILY = ("cglow", "mcglow")
+_PORTED = _GAN_FAMILY + _VAE_FAMILY + _PIXELCNN_FAMILY + _GLOW_FAMILY + ("vqvae", "classifier")
 
 
 def _batch_size(cfg: dict, res: int) -> None:
@@ -91,11 +92,13 @@ def process_control(cfg: dict) -> dict:
     ``Synthetic{K}`` / ``SyntheticGray{K}`` take the shape of their base and
     the per-mode protocol of a dataset with that many modes. The GAN
     family's, the VAE family's, the VQ-VAE's, the PixelCNN family's (15
-    layers, hidden 128, 512 codes, over the ``ae_name`` VQ-VAE's grid) and
-    the classifier's hyperparameters are ported; Glow raises until its slice
-    lands (ROADMAP Queue A). With ``derive_model_params=False`` a
-    caller-supplied ``gan`` / ``vae`` / ``vqvae`` / ``pixelcnn`` dict is
-    kept, as the tests do for tiny models.
+    layers, hidden 128, 512 codes, over the ``ae_name`` VQ-VAE's grid), the
+    Glow family's (hidden 512, K 16, L 3 at 32 px and 5 otherwise, affine,
+    LU, ``scan_flows``: the layout its variables are exported in) and the
+    classifier's hyperparameters are ported. With
+    ``derive_model_params=False`` a caller-supplied ``gan`` / ``vae`` /
+    ``vqvae`` / ``pixelcnn`` / ``glow`` dict is kept, as the tests do for
+    tiny models.
     """
     cfg = copy.deepcopy(cfg)
     if "controller_rate" in cfg.get("control", {}):
@@ -142,6 +145,9 @@ def process_control(cfg: dict) -> dict:
             "discriminator_hidden_size": d_hidden,
             "embedding_size": 32,
         }
+    elif name in _GLOW_FAMILY:
+        cfg["glow"] = {"hidden_size": 512, "K": 16, "L": 3 if res == 32 else 5,
+                       "affine": True, "conv_lu": True, "scan_flows": True}
     elif name in _VAE_FAMILY:
         cfg["vae"] = {
             "hidden_size": [64, 128, 256] if res == 32 else [64, 128, 256, 512, 512],

@@ -7,9 +7,13 @@ at ``{output_dir}/model/{tag}_checkpoint.pkl`` every epoch, copied to
 for a checkpoint inside an epoch), ``model_dict`` (the JAX package's
 variable tree as numpy: ``io.jax_import.to_jax_gan_variables``),
 ``optimizer_dict`` and ``scheduler_dict``, and ``logger``. The port adds
-``torch_rng``, the state of the train state's z generator. Everything is
-numpy or plain Python, so either package reads the model of the other's
-checkpoints.
+``torch_rng``, the state of the train state's noise generator. Everything
+is numpy or plain Python, so either package reads the model of the other's
+checkpoints. A Glow's variables are written in the layout of its config
+(``glow.scan_flows`` / ``scan_chunk``: the model exports that layout), as
+the JAX package's resume matches them, and read in any layout, so one
+``_best`` serves both packages and a resume under another ``scan_chunk``
+repacks.
 
 A checkpoint the JAX package wrote also pickles its ``Logger`` and optax
 states; unpickling those the ordinary way would import ``mcgm_tpu``,

@@ -28,6 +28,8 @@ flax port names the same way: :func:`from_jax_inception` and
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 from torch import nn
@@ -72,6 +74,8 @@ def _key(parts, name: str) -> str:
 
 def from_jax_variables(variables) -> dict[str, torch.Tensor]:
     """A ``state_dict`` that makes the port compute the JAX model's function."""
+    if is_glow_tree(variables):
+        return _from_jax_glow(variables)
     state = {}
     for collection in _COLLECTIONS:
         for path, arr in _walk(variables.get(collection, {})):
@@ -122,9 +126,14 @@ def jax_leaves(module: nn.Module):
     for name, mod in module.named_modules():
         path = tuple(p for p in name.split(".") if p and p != "blocks")
         bn = isinstance(mod, layers.BatchNorm)
+        named = getattr(mod, "jax_names", {})  # a module that places its own leaves
         for leaf, t in list(mod.named_parameters(recurse=False)) + list(
                 mod.named_buffers(recurse=False)):
             if leaf in mod._non_persistent_buffers_set:  # a Conv's causal mask
+                continue
+            if leaf in named:
+                coll, *rest = named[leaf]
+                yield f"{name}.{leaf}", (coll, *path, *rest), t
                 continue
             if isinstance(mod, VectorQuantizerEMA):
                 coll, key = "vq_stats", leaf
@@ -156,7 +165,121 @@ def to_jax_gan_variables(module: nn.Module) -> dict:
         value = (_kernel_to_jax(t, key.rpartition(".")[0] in transposed) if path[-1] == "kernel"
                  else t.detach().cpu().numpy().astype(np.float32))
         _put(out, path, value)
+    if getattr(module, "scan_flows", False):  # a Glow: its flows in the scanned layout
+        out = pack_glow_flows(out, module.scan_chunk)
     return out
+
+
+# ------------------------------------------------------------------ Glow
+# A Glow's flows sit in the JAX tree in one of three layouts: unscanned
+# (``block_i/flow_k/...``, one subtree per flow, the port's own module
+# names), scanned (``block_i/flows/flow/...`` with every leaf stacked
+# ``[K, ...]``, the default) or chunked (``block_i/flows/flow_j/...``,
+# ``[K/c, ...]``, row ``r`` of ``flow_j`` holding flow ``r*c + j``), in every
+# collection (``params``, ``codebook``, ``glow_const``). Numpy copies of the
+# JAX package's ``detect_glow_scan_chunk`` / ``rechunk_glow_flows``.
+
+_BLOCK = re.compile(r"block_\d+$")
+_FLOW = re.compile(r"flow_(\d+)$")
+
+
+def is_glow_tree(variables) -> bool:
+    """Whether a variable tree is a Glow's (``params`` keyed by blocks)."""
+    params = variables.get("params", {})
+    return bool(params) and all(_BLOCK.match(k) for k in params)
+
+
+def detect_glow_scan_chunk(variables) -> int:
+    """The ``scan_chunk`` of a tree's scanned flows: 1 for ``flows/flow``,
+    c for ``flows/flow_0 .. flow_{c-1}``, 1 where no flows are scanned."""
+    def find(node):
+        if isinstance(node, dict):
+            if "flows" in node:
+                keys = node["flows"].keys()
+                return 1 if "flow" in keys else len(keys)
+            for v in node.values():
+                got = find(v)
+                if got is not None:
+                    return got
+        return None
+
+    return find(variables) or 1
+
+
+def _map_leaves(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _map_leaves(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def unpack_glow_flows(variables) -> dict:
+    """The tree with every block's flows unscanned (``flow_k``), whatever
+    its layout."""
+    def block(node):
+        if "flows" not in node:
+            return dict(node)
+        fl = node["flows"]
+        if "flow" in fl:
+            subs, c = [fl["flow"]], 1
+        else:
+            c = len(fl)
+            subs = [fl[f"flow_{j}"] for j in range(c)]
+        rows = len(next(_walk(subs[0]))[1])
+        out = {k: v for k, v in node.items() if k != "flows"}
+        for r in range(rows):
+            for j, sub in enumerate(subs):
+                out[f"flow_{r * c + j}"] = _map_leaves(lambda a, r=r: np.array(a[r]), sub)
+        return out
+
+    return {coll: {k: block(v) if _BLOCK.match(k) else v for k, v in tree.items()}
+            for coll, tree in variables.items()}
+
+
+def pack_glow_flows(variables, chunk: int = 1) -> dict:
+    """The tree with every block's ``flow_k`` stacked into the scanned
+    layout, ``scan_chunk = chunk``."""
+    def block(node):
+        ks = sorted((int(_FLOW.match(k).group(1)) for k in node if _FLOW.match(k)))
+        if not ks:
+            return dict(node)
+        if len(ks) % chunk:
+            raise ValueError(f"scan_chunk={chunk} must divide K={len(ks)}")
+        out = {k: v for k, v in node.items() if not _FLOW.match(k)}
+
+        def stack(idx):
+            return _map_leaves(lambda *a: np.stack(a), *(node[f"flow_{i}"] for i in idx))
+
+        out["flows"] = ({"flow": stack(ks)} if chunk == 1 else
+                        {f"flow_{j}": stack(ks[j::chunk]) for j in range(chunk)})
+        return out
+
+    return {coll: {k: block(v) if _BLOCK.match(k) else v for k, v in tree.items()}
+            for coll, tree in variables.items()}
+
+
+def rechunk_glow_flows(variables, to_chunk: int) -> dict:
+    """Repack a tree's flows, in any layout, to ``scan_chunk = to_chunk``."""
+    return pack_glow_flows(unpack_glow_flows(variables), to_chunk)
+
+
+def _from_jax_glow(variables) -> dict[str, torch.Tensor]:
+    """A Glow's ``state_dict`` from its JAX tree in any layout: a conv's
+    ``kernel`` is its ``weight`` (HWIO -> OIHW), the invconv's ``glow_const``
+    ``const/{w_p, s_sign}`` its buffers, every other leaf keeps its name."""
+    state = {}
+    for coll, tree in unpack_glow_flows(variables).items():
+        if coll not in ("params", "codebook", "glow_const"):
+            raise KeyError(f"unknown Glow collection {coll}")
+        for path, arr in _walk(tree):
+            *mod, leaf = path
+            a = np.asarray(arr, np.float32)
+            if leaf == "kernel":
+                a, leaf = _kernel_from_jax(a, False), "weight"
+            if mod and mod[-1] == "const":
+                mod = mod[:-1]
+            state[".".join(mod + [leaf])] = torch.from_numpy(np.array(a, np.float32,
+                                                                      order="C"))
+    return state
 
 
 def from_jax_classifier(variables) -> dict[str, torch.Tensor]:

@@ -26,10 +26,13 @@ shape (``samples``: bf16, P = 64, one product per sample on ``wgmma``;
 every other shape); :func:`variant` names it. The call is a
 ``torch.autograd.Function`` whose backward is the JAX package's VJP of the
 TPU kernel, widened to the epilogue: the mask is a constant, so with
-``gz = g * code`` (times ``out > 0`` under ReLU, times ``alpha``)
-``dx = w^T gz`` and ``dw = sum gz x^T``, as plain products (the JAX VJP
-leaves them to XLA outside the kernel). ``alpha``, ``beta``, ``indicator``
-and ``codebook`` get no gradient.
+``gz = g * code`` (times ``out > 0`` under ReLU) ``dbeta = sum_{b,p} gz``
+and ``dalpha = sum_{b,p} gz * acc`` (``acc = w @ x`` recomputed as a plain
+product), then with ``gz`` times ``alpha`` ``dx = w^T gz`` and ``dw = sum
+gz x^T``, as plain products in f32 (the JAX VJP leaves them to XLA outside
+the kernel). ``alpha`` and ``beta`` get their gradients where they require
+them (Glow's ActNorm after its coupling nets' 1x1, the conv's bias
+through ``beta``); ``indicator`` and ``codebook`` get none.
 """
 
 from __future__ import annotations
@@ -157,27 +160,36 @@ class _MCGatedMatmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w, alpha, indicator, codebook, out = ctx.saved_tensors
+        need_x, need_w, need_alpha, need_beta = ctx.needs_input_grad[:4]
         gz = _as3(g).float()
         if indicator is not None:
             gz = gz * (indicator.float() @ codebook.float())[:, :, None]
         if ctx.relu:
             gz = gz * (_as3(out) > 0)
+        x3 = _as3(x).float()
+        dalpha = dbeta = dx = dw = None
+        if need_beta:
+            dbeta = gz.sum((0, 2))
+        if need_alpha:
+            dalpha = (gz * torch.einsum("nk,bkp->bnp", w.float(), x3)).sum((0, 2))
         if alpha is not None:
             gz = gz * alpha.float()[:, None]
-        x3 = _as3(x).float()
-        dx = torch.einsum("nk,bnp->bkp", w.float(), gz).reshape(x.shape).to(x.dtype)
-        dw = torch.einsum("bnp,bkp->nk", gz, x3).to(w.dtype)
-        return dx, dw, None, None, None, None, None
+        if need_x:
+            dx = torch.einsum("nk,bnp->bkp", w.float(), gz).reshape(x.shape).to(x.dtype)
+        if need_w:
+            dw = torch.einsum("bnp,bkp->nk", gz, x3).to(w.dtype)
+        return dx, dw, dalpha, dbeta, None, None, None
 
 
 def mc_gated_matmul(x, w, alpha=None, beta=None, indicator=None, codebook=None,
                     relu: bool = False) -> torch.Tensor:
     """See the module doc: the kernel for a CUDA ``x``, the plain version for
-    a CPU one, differentiable in ``x`` and ``w``."""
+    a CPU one, differentiable in ``x``, ``w``, ``alpha`` and ``beta``."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"mc_gated_matmul: no kernel for device {x.device}")
     _check(x, w, alpha, beta, indicator, codebook)
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (x, w, alpha, beta)):
         return _MCGatedMatmul.apply(x, w, alpha, beta, indicator, codebook, relu)
     return _forward(x, w, alpha, beta, indicator, codebook, relu)  # no graph to record
 

@@ -1,5 +1,6 @@
 """Model factory (port of ``mcgm_tpu/models/__init__.py``: mcgan, cgan,
-mcvae, cvae, vqvae, mcpixelcnn, cpixelcnn and the classifier)."""
+mcvae, cvae, vqvae, mcpixelcnn, cpixelcnn, mcglow, cglow and the
+classifier)."""
 
 from __future__ import annotations
 
@@ -9,11 +10,13 @@ from ..ops.layers import resolve_compute_dtype
 from ..utils import resolve_device
 from .classifier import Classifier
 from .gan import CGAN, MCGAN
+from .glow import CGlow, MCGlow
 from .pixelcnn import CPixelCNN, MCPixelCNN
 from .vae import CVAE, MCVAE
 from .vqvae import VQVAE
 
-PORTED = ("mcgan", "cgan", "mcvae", "cvae", "vqvae", "mcpixelcnn", "cpixelcnn", "classifier")
+PORTED = ("mcgan", "cgan", "mcvae", "cvae", "vqvae", "mcpixelcnn", "cpixelcnn", "mcglow", "cglow",
+          "classifier")
 
 
 def build_model(cfg: dict, device=None) -> nn.Module:
@@ -23,7 +26,8 @@ def build_model(cfg: dict, device=None) -> nn.Module:
 
     ``cfg["classes_size"]`` must be set (but for vqvae); ``cfg["compute_dtype"]``
     ('auto' by default) picks the activation dtype of the GANs, the VAEs,
-    the VQ-VAE and the PixelCNNs. The classifier runs f32.
+    the VQ-VAE, the PixelCNNs and Glow's convs. The classifier runs f32.
+    A Glow with ``reversible_flows`` or a pipeline axis is refused.
     """
     name = cfg["model_name"]
     if name not in PORTED:
@@ -52,6 +56,21 @@ def build_model(cfg: dict, device=None) -> nn.Module:
         else:
             model = CPixelCNN(p["num_embedding"], p["hidden_size"], p["num_layer"],
                               cfg["classes_size"], dtype, seed)
+        return model.to(dev).eval()
+    if name in ("mcglow", "cglow"):
+        p = cfg["glow"]
+        opts = dict(scan_flows=p.get("scan_flows", True), scan_chunk=p.get("scan_chunk", 1),
+                    remat_flows=p.get("remat_flows", True), scan_unroll=p.get("scan_unroll", 1),
+                    reversible_flows=p.get("reversible_flows", False)
+                    or cfg.get("reversible_flows", False),
+                    pipe_axis=p.get("pipe_axis")
+                    or ("pipe" if int(cfg.get("pipe_size", 1) or 1) > 1 else None))
+        args = (shape, p["hidden_size"], p["K"], p["L"], p["affine"], p["conv_lu"],
+                cfg["classes_size"])
+        if name == "mcglow":
+            model = MCGlow(*args, cfg.get("controller_rate", 0.5), dtype, seed, **opts)
+        else:
+            model = CGlow(*args, dtype, seed, **opts)
         return model.to(dev).eval()
     if name == "vqvae":
         p = cfg["vqvae"]

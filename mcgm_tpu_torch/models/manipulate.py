@@ -1,4 +1,4 @@
-"""Mode creation and transition for the GAN, VAE and PixelCNN families. Port of
+"""Mode creation and transition for the GAN, VAE, PixelCNN and Glow families. Port of
 ``mcgm_tpu/models/manipulate.py`` (``create``, ``create_torch_compat``,
 ``transit``, ``transit_codebook``, ``transit_embedding``).
 
@@ -12,7 +12,9 @@ does). What changes:
   of G (CVAE: of the encoder and of the decoder) and ``SNDense`` of D,
   whose port weight is ``[emb, num_mode]`` (mode axis 1; the JAX kernel is
   its transpose); CPixelCNN's ``class_cond_embedding`` tables
-  ``[num_mode, 2h]`` (mode axis 0, as in the JAX package).
+  ``[num_mode, 2h]`` (mode axis 0, as in the JAX package); CGlow's prior
+  ``embedding`` 1x1 conv, port weight ``[out, num_mode, 1, 1]`` (mode axis
+  1; the JAX kernel's axis 2).
 
 ``create`` draws ``classes_size`` new modes: fresh codebooks, and Dirichlet
 convex mixes of the trained embedding rows; the caller rebuilds the model
@@ -24,7 +26,11 @@ variables, by sorted path (collection first, so codebooks before
 embeddings, and ``_MCDisResBlock_10`` before ``_MCDisResBlock_2``), with one
 counter across both kinds; ``create_torch_compat`` draws from one CPU
 ``torch.Generator`` seeded once, in the reference's ``named_modules``
-order.
+order. A Glow's leaves are visited in the JAX tree of its export layout:
+with ``scan_flows`` (the default) each MC position of a block is one
+``[K, num_mode, C]`` leaf, whose flow ``i`` codebook is
+``make_codebook(rng_seed + 1000 * counter + i, ...)``; the reference's
+stream draws a block's codebooks flow by flow, ``MC_0`` before ``MC_1``.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..io.jax_import import jax_leaves
+from ..io.jax_import import from_jax_variables, jax_leaves, to_jax_gan_variables
 from ..ops.controller import make_codebook
 
 
@@ -50,6 +56,8 @@ def _matched(model: nn.Module) -> list:
             out.append((key, path, 1, t))
         elif path[-2:] == ("class_cond_embedding", "embedding"):
             out.append((key, path, 0, t))
+        elif path[-3:] == ("embedding", "conv", "kernel"):  # CGlow's prior embedding
+            out.append((key, path, 1, t))
     return sorted(out, key=lambda m: m[1])
 
 
@@ -74,7 +82,11 @@ def _ref_order_key(family: str, parts: tuple):
     decoder's ``MultimodalController_0`` and ``_1``, its residual blocks,
     then ``MultimodalController_2`` on. PixelCNN: the layers in order
     (``gate_v``, ``gate_h``, ``horiz_resid_mc``, or the layer's class
-    embedding), then the head."""
+    embedding), then the head. Glow: block by block, flow by flow,
+    ``MultimodalController_0`` before ``_1``."""
+    if family == "glow":
+        return (_nat(parts[0]), _nat(parts[1]) if parts[1].startswith("flow_") else -1,
+                max(_nat(parts[-2]), 0))
     if family == "pixelcnn":
         if parts[0] == "head":
             return (1, 0, 0)
@@ -116,10 +128,10 @@ def create_torch_compat(model: nn.Module, classes_size: int, seed: int,
     then codebooks and Dirichlet mixes drawn module by module. As in the
     reference, CGAN's D embedding consumes a draw and keeps its weight (its
     spectral norm recomputes the weight from the original)."""
-    family = next((f for f in ("vae", "gan", "pixelcnn") if f in model_name), None)
+    family = next((f for f in ("vae", "gan", "pixelcnn", "glow") if f in model_name), None)
     if family is None:
         raise NotImplementedError(
-            f"create for {model_name!r}: only the GAN, VAE and PixelCNN families are "
+            f"create for {model_name!r}: only the GAN, VAE, PixelCNN and Glow families are "
             "ported (ROADMAP Queue A)")
     g = torch.Generator().manual_seed(seed)
     state = dict(model.state_dict())
@@ -143,6 +155,8 @@ def create(model: nn.Module, classes_size: int, rng_seed: int = 0,
     its rows by ``default_rng((rng_seed, i, old_modes)).dirichlet``."""
     if torch_compat:
         return create_torch_compat(model, classes_size, rng_seed, model_name)
+    if getattr(model, "scan_flows", False):
+        return _create_glow_scanned(model, classes_size, rng_seed)
     state = dict(model.state_dict())
     counter = 0
     for key, _, axis, t in _matched(model):
@@ -157,6 +171,42 @@ def create(model: nn.Module, classes_size: int, rng_seed: int = 0,
             state[key] = _mix_rows(t, rng.dirichlet(np.ones(old_modes), size=classes_size),
                                    axis)
     return state
+
+
+def _sorted_leaves(tree: dict, path=()):
+    """``(path, leaf)`` of a nested dict in ``jax.tree_util``'s order (keys
+    sorted at every level)."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _sorted_leaves(tree[k], path + (k,))
+        else:
+            yield path + (k,), tree[k]
+
+
+def _create_glow_scanned(model: nn.Module, classes_size: int, rng_seed: int) -> dict:
+    """``create`` over a Glow's JAX tree in its scanned layout: a stacked
+    codebook leaf draws ``make_codebook(rng_seed + 1000 * counter + i)`` for
+    its row ``i``, the embedding kernel mixes along axis 2."""
+    tree = to_jax_gan_variables(model)
+    counter = 0
+    for path, leaf in _sorted_leaves(tree):
+        node = tree
+        for k in path[:-1]:
+            node = node[k]
+        if path[-1] == "codebook":
+            counter += 1
+            node[path[-1]] = np.stack([make_codebook(rng_seed + 1000 * counter + i,
+                                                     classes_size, leaf.shape[-1], 0.5)
+                                       for i in range(leaf.shape[0])])
+        elif path[-3:] == ("embedding", "conv", "kernel"):
+            old_modes = leaf.shape[2]
+            rng = np.random.default_rng((rng_seed, counter, old_modes))
+            counter += 1
+            mix = rng.dirichlet(np.ones(old_modes), size=classes_size)
+            node[path[-1]] = np.moveaxis(np.tensordot(mix.astype(np.float32),
+                                                      np.moveaxis(leaf, 2, 0), 1), 0, 2)
+    dev = next(model.parameters()).device
+    return {k: t.to(dev) for k, t in from_jax_variables(tree).items()}
 
 
 def transit_codebook(codebook: np.ndarray, root: int, alpha: float) -> np.ndarray:

@@ -102,12 +102,13 @@ def make_train_step(skip_nonfinite: bool = False):
 
 
 def make_eval_step():
-    """``step(model, batch) -> output``: the forward in eval mode (running
-    statistics), without gradients."""
+    """``step(model, batch, **inputs) -> output``: the forward in eval mode
+    (running statistics), without gradients; ``inputs`` go to the model (a
+    Glow's noise generator, ``rng``)."""
 
     @torch.no_grad()
-    def step(model: nn.Module, batch: dict) -> dict:
-        return model(batch, train=False)
+    def step(model: nn.Module, batch: dict, **inputs) -> dict:
+        return model(batch, train=False, **inputs)
 
     return step
 

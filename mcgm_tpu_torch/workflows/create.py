@@ -1,4 +1,4 @@
-"""Create workflow (port of ``mcgm_tpu/workflows/create.py``; GAN, VAE and PixelCNN families):
+"""Create workflow (port of ``mcgm_tpu/workflows/create.py``; GAN, VAE, PixelCNN and Glow families):
 generate modes that were never trained, by drawing fresh codebooks and
 Dirichlet mixes of the class embeddings (``models.manipulate.create``).
 
@@ -7,10 +7,9 @@ Dirichlet mixes of the class embeddings (``models.manipulate.create``).
   ``{output_dir}/npy/created_{tag}.npy`` (and with ``save_img`` its grid);
 - otherwise: for 10, 50 and 100 created modes (seed + modes), the model is
   rebuilt with that many modes and a grid of ``save_per_mode`` rows is
-  written, ``{output_dir}/vis/created_{tag}_{modes}.{save_format}``.
-
-The JAX package's Glow branch (oversample, keep the NaN-free images) waits
-for the Glow port: a Glow model raises here.
+  written, ``{output_dir}/vis/created_{tag}_{modes}.{save_format}``. A Glow
+  on CIFAR10 draws 1,000 images per mode and keeps, per mode, the first
+  ``save_per_mode`` finite ones (:func:`keep_finite_per_mode`).
 """
 
 from __future__ import annotations
@@ -34,12 +33,31 @@ def created_sampler(sampler: Sampler, classes_size: int, seed: int) -> Sampler:
     return sampler.with_state(state, classes_size)
 
 
+GLOW_OVERSAMPLE = 1000  # draws per created mode of a CIFAR10 Glow
+
+
+def keep_finite_per_mode(images: np.ndarray, modes: int, per_mode: int) -> np.ndarray:
+    """From a class sweep ``tile(arange(modes), n)`` of images ``[n * modes,
+    H, W, C]``: per mode its first ``per_mode`` finite images, padded with
+    its first non-finite ones where too few are finite; returned as the
+    grid's rows, ``[per_mode * modes, H, W, C]`` (row ``r`` holds every
+    mode's ``r``-th image)."""
+    kept = []
+    for j in range(modes):
+        imgs = images[j::modes]
+        ok = np.isfinite(imgs).all(axis=(1, 2, 3))
+        good = imgs[ok][:per_mode]
+        if len(good) < per_mode:
+            good = np.concatenate([good, imgs[~ok][:per_mode - len(good)]])
+        kept.append(good)
+    grid = np.stack(kept)  # [modes, per_mode, H, W, C]
+    return grid.transpose(1, 0, 2, 3, 4).reshape(-1, *grid.shape[2:])
+
+
 def create_workflow(sampler: Sampler, tag: str, generator: torch.Generator | None = None):
     """The ``save_npy`` dump (returned) or the grids (returns None). Noise
     from ``generator``, seeded ``seed ^ 0xC0DE`` by default."""
     cfg = sampler.cfg
-    if "glow" in cfg["model_name"]:
-        raise NotImplementedError("create for Glow (its NaN filter) waits for the Glow port")
     seed = int(tag.split("_")[0])
     if generator is None:
         generator = torch.Generator(sampler.device).manual_seed(seed ^ 0xC0DE)
@@ -52,10 +70,16 @@ def create_workflow(sampler: Sampler, tag: str, generator: torch.Generator | Non
         if cfg.get("save_img"):
             sweep_grid(cfg, created, f"created_{tag}")
         return out
+    glow = "glow" in cfg["model_name"] and cfg["data_name"] == "CIFAR10"
     for modes in (10, 50, 100):
         s = created_sampler(sampler, modes, seed + modes)
-        C = np.tile(np.arange(modes), cfg["save_per_mode"])
-        grid = s.sample_chunked(C, generator).cpu().numpy()
+        if glow:
+            C = np.tile(np.arange(modes), GLOW_OVERSAMPLE)
+            grid = keep_finite_per_mode(s.sample_chunked(C, generator).cpu().numpy(), modes,
+                                        cfg["save_per_mode"])
+        else:
+            C = np.tile(np.arange(modes), cfg["save_per_mode"])
+            grid = s.sample_chunked(C, generator).cpu().numpy()
         save_image_grid(grid, vis_path(cfg, f"created_{tag}_{modes}.{cfg['save_format']}"),
                         nrow=modes)
     return None

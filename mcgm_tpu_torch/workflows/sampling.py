@@ -1,6 +1,8 @@
-"""Sampling backend of the generate / transit / create workflows: the GAN
-and VAE families, and the PixelCNN family with its frozen VQ-VAE (a VQ-VAE
-alone cannot sample). Port of ``mcgm_tpu/workflows/sampling.py``.
+"""Sampling backend of the generate / transit / create workflows: the GAN,
+VAE and Glow families, and the PixelCNN family with its frozen VQ-VAE (a
+VQ-VAE alone cannot sample). Port of ``mcgm_tpu/workflows/sampling.py``.
+A Glow's z is one normal per level of ``make_z_shapes`` (``[n, h, w, c]``,
+level order), which its reverse pass turns into images.
 
 Noise comes from an explicit ``torch.Generator``; JAX and torch streams
 differ, so parity tests hand both packages the same z. A PixelCNN draws no
@@ -42,7 +44,7 @@ class Sampler:
         ``sampling_module`` (a GAN's generator, a VAE's decoder): created
         modes are generated, never discriminated or encoded (and the
         reference's torch stream leaves CGAN's D embedding at the trained
-        mode count)."""
+        mode count). A Glow or a PixelCNN samples with all of itself."""
         cfg = self.cfg
         if classes_size is None or classes_size == cfg["classes_size"]:
             model = copy.deepcopy(self.model)
@@ -51,7 +53,7 @@ class Sampler:
         cfg = dict(cfg, classes_size=classes_size)
         model = build_model(cfg, self.device)
         model.compute_dtype = self.model.compute_dtype
-        if self.ae_model is not None:  # a PixelCNN samples with all of itself
+        if self.ae_model is not None or not hasattr(model, "sampling_module"):
             model.load_state_dict(state)
             return Sampler(cfg, model, self.ae_model)
         keep = model.sampling_module
@@ -62,11 +64,14 @@ class Sampler:
             {k[len(keep) + 1:]: t for k, t in state.items() if k.startswith(keep + ".")})
         return Sampler(cfg, model)
 
-    def sample_z(self, n: int, generator: torch.Generator) -> torch.Tensor | None:
-        """``[n, latent]`` normal noise; None for a PixelCNN, whose uniforms
-        are drawn position by position at sample time."""
+    def sample_z(self, n: int, generator: torch.Generator):
+        """``[n, latent]`` normal noise (a Glow: a list, one per level); None
+        for a PixelCNN, whose uniforms are drawn position by position at
+        sample time."""
         if self.ae_model is not None:
             return None
+        if hasattr(self.model, "make_z_shapes"):
+            return [z.to(self.device) for z in self.model.sample_z(n, generator)]
         if not hasattr(self.model, "latent_size"):
             raise ValueError(f"{self.cfg['model_name']} cannot sample: it decodes codes, "
                              "not latents (its sampler is the PixelCNN's)")
@@ -75,12 +80,13 @@ class Sampler:
         return z.to(self.device)
 
     @torch.no_grad()
-    def sample_with_z(self, C, z: torch.Tensor) -> torch.Tensor:
+    def sample_with_z(self, C, z) -> torch.Tensor:
         """NHWC images in [-1, 1], f32, on the model's device."""
         if self.ae_model is not None:
             raise ValueError("pixelcnn sampling is autoregressive: call sample(C, generator)")
         C = torch.as_tensor(np.asarray(C), dtype=torch.long, device=self.device)
-        return self.model.generate(C, z.to(self.device))
+        z = [t.to(self.device) for t in z] if isinstance(z, list) else z.to(self.device)
+        return self.model.generate(C, z)
 
     def sample(self, C, generator: torch.Generator) -> torch.Tensor:
         if self.ae_model is None:

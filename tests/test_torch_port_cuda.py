@@ -448,6 +448,14 @@ def _mc_inputs(dev, B, K, N, P, modes=10, dtype=torch.bfloat16, seed=0, soft=Fal
     (1000, 128, 128, 64, False, torch.bfloat16, True, "samples"),
     (1200, 128, 128, 64, False, torch.bfloat16, True, "samples"),
     (1200, 64, 200, 64, True, torch.bfloat16, True, "samples"),
+    # Glow's coupling nets at B=128 (levels 1-3: P = 256, 64, 16; K = N =
+    # 512), MCGlow's with the gate and CGlow's without
+    (128, 512, 512, 256, True, torch.bfloat16, True, "generic"),
+    (128, 512, 512, 64, True, torch.bfloat16, True, "generic"),
+    (128, 512, 512, 16, True, torch.bfloat16, True, "generic"),
+    (128, 512, 512, 256, True, torch.bfloat16, False, "generic"),
+    (128, 512, 512, 64, True, torch.bfloat16, False, "generic"),
+    (128, 512, 512, 16, True, torch.bfloat16, False, "generic"),
 ])
 def test_mc_gated_matmul_matches_plain(dev, B, K, N, P, relu, dtype, gate, variant):
     """The kernel against its plain version (f32 sums, one rounding to the
@@ -481,6 +489,86 @@ def test_mc_gated_matmul_gradient_matches_plain(dev):
     (mc_gate.mc_gated_matmul_reference(xr, wr, None, None, ind, cb) ** 2).sum().backward()
     for a, b in ((xs.grad, xr.grad), (ws.grad, wr.grad)):
         assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+@pytest.mark.parametrize("gate", [True, False])
+def test_mc_gated_matmul_affine_gradient_matches_plain(dev, gate):
+    """The widened backward at Glow's level-2 shape (bf16 operands, ReLU,
+    alpha and beta requiring gradients): every gradient against the plain
+    version's autograd, ``dx`` / ``dw`` (bf16) within ``2e-2 * max``,
+    ``dalpha`` / ``dbeta`` (f32 sums in another order) within ``1e-4 *
+    max``. The upstream gradient is 0 where the pre-activation is within
+    ``1e-3 * max`` of 0: there the kernel's f32 sums, in another order, may
+    take the ReLU's mask the other way."""
+    from mcgm_tpu_torch.kernels import mc_gate
+
+    x, w, alpha, beta, ind, cb = _mc_inputs(dev, 128, 512, 512, 64)
+    if not gate:
+        ind = cb = None
+    pre = torch.einsum("nk,bkp->bnp", w.float(), x.float()) * alpha[:, None] + beta[:, None]
+    r = torch.randn((128, 512, 64), device=dev) * (pre.abs() > 1e-3 * pre.abs().max())
+    grads = []
+    for fn in (mc_gate.mc_gated_matmul, mc_gate.mc_gated_matmul_reference):
+        leaves = [t.clone().requires_grad_() for t in (x, w, alpha, beta)]
+        (fn(*leaves, ind, cb, True).float() * r).sum().backward()
+        grads.append([t.grad.float() for t in leaves])
+    for i, (a, b) in enumerate(zip(*grads)):
+        assert (a - b).abs().max() <= (TOL if i < 2 else 1e-4) * b.abs().max(), i
+
+
+def test_glow_step_kernel_path_matches_plain(dev):
+    """One full-width CIFAR10 MCGlow step (B=128, bf16 convs, remat_flows)
+    from one state, through the kernel (48 launches in the forward, 48 in
+    the recompute) and through its plain version: the loss within ``1e-2 *
+    |plain|``, the gradients of the coupling nets' ActNorm after the 1x1
+    (through the widened backward) within ``5e-2 * max|plain|``, and every
+    parameter after the step within ``5e-2 * max|plain|`` of its tensor plus
+    ``2 lr / 16`` (this first, warmed-up Adam update is a sign: a gradient
+    near 0 may take the other one). The zero convs start from small random
+    weights, so gradients reach the 1x1."""
+    from mcgm_tpu_torch.config import process_control
+    from mcgm_tpu_torch.kernels import mc_gate
+    from mcgm_tpu_torch.models import build_model
+    from mcgm_tpu_torch.models.glow import ZeroConv2d
+    from mcgm_tpu_torch.train.optim import make_optimizer
+    from mcgm_tpu_torch.train.state import TrainState, make_train_step
+
+    cfg = loop.apply_family_overrides(process_control({"data_name": "CIFAR10",
+                                                       "model_name": "mcglow"}))
+    cfg["classes_size"] = 10
+    g = torch.Generator(device=dev).manual_seed(0)
+    batch = {"img": torch.rand((128, 32, 32, 3), generator=g, device=dev) * 2 - 1,
+             "label": torch.arange(128, device=dev) % 10}
+    noise = torch.rand((128, 32, 32, 3), generator=g, device=dev)
+    state = None
+    outs = {}
+    for plain in (False, True):
+        model = build_model(cfg, dev).use_plain_kernels(plain)
+        if state is None:
+            with torch.no_grad():
+                model(batch, train=True, ddi=True, noise=noise)
+                for m in model.modules():
+                    if isinstance(m, ZeroConv2d):
+                        m.conv.weight.normal_(0.0, 1e-2, generator=g)
+            state = {k: t.clone() for k, t in model.state_dict().items()}
+        model.load_state_dict(state)
+        ts = TrainState(model, make_optimizer(model.parameters(), cfg, grad_clip=1.0))
+        seen = []
+        ts.opt.register_step_pre_hook(lambda *_, m=model: seen.append(
+            {n: p.grad.clone() for n, p in m.named_parameters() if "ActNorm_1" in n}))
+        before = mc_gate.mc_gated_matmul.launches
+        out = make_train_step(skip_nonfinite=True)(ts, batch, noise=noise)
+        assert mc_gate.mc_gated_matmul.launches - before == (0 if plain else 96)
+        assert float(out["skipped"]) == 0.0
+        outs[plain] = (float(out["loss"]), model.state_dict(), seen[0])
+    (lk, sk, gk), (lp, sp, gp) = outs[False], outs[True]
+    assert abs(lk - lp) <= 1e-2 * abs(lp)
+    for k, b in sp.items():
+        assert ((sk[k].float() - b.float()).abs().max()
+                <= 5e-2 * b.float().abs().max() + 2 * cfg["lr"] / 16), k
+    for k, b in gp.items():
+        assert b.abs().max() > 0, k
+        assert (gk[k] - b).abs().max() <= 5e-2 * b.abs().max(), k
 
 
 @pytest.mark.parametrize("name", ["mcpixelcnn", "cpixelcnn"])

@@ -206,8 +206,8 @@ def test_process_control_128px_mcgan():
     assert cfg["gan"]["generator_hidden_size"] == [1024, 512, 256, 128, 64]
     assert cfg["gan"]["discriminator_hidden_size"] == [64, 128, 256, 512, 1024]
     assert cfg["gan"]["latent_size"] == 128
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        process_control({"data_name": "CIFAR10", "model_name": "mcglow"})
+    glow = process_control({"data_name": "CelebA-HQ", "model_name": "mcglow"})["glow"]
+    assert (glow["hidden_size"], glow["K"], glow["L"]) == (512, 16, 5)  # ported, not refused
 
 
 def test_build_model_defaults_to_cuda():

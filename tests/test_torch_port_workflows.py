@@ -284,11 +284,36 @@ def test_create_workflow_matches_jax(pair):
     assert {f for f in _pngs(port)} >= {f"created_0_tiny_{m}.png" for m in (10, 50, 100)}
 
 
-def test_create_refuses_glow(pair):
-    port, _ = pair("cgan")
-    with pytest.raises(NotImplementedError, match="Glow"):
-        create_workflow(psampling.Sampler(dict(port.cfg, model_name="cglow"), port.model),
-                        "0_tiny")
+def test_create_refuses_glow(pair, monkeypatch):
+    """Glow's create is ported, not refused: on CIFAR10 the workflow draws
+    1,000 images per created mode and keeps per mode the first
+    ``save_per_mode`` finite ones, padded with non-finite ones, as the JAX
+    package's does (both packages' created samplers and draws stubbed with
+    one sweep, a third of it NaN, a mode of it all NaN)."""
+    port, jsam = pair("cgan", model_name="cglow", data_name="CIFAR10")
+
+    def sweep(n):
+        img = np.linspace(-1, 1, n * 4, dtype=np.float32).reshape(n, 2, 2, 1)
+        img[::3, 0, 0, 0] = np.nan
+        img[7::10, 1, 1, 0] = np.nan
+        return img
+
+    monkeypatch.setattr(sys.modules["mcgm_tpu_torch.workflows.create"], "created_sampler",
+                        lambda s, modes, seed: s)
+    monkeypatch.setattr(sys.modules["mcgm_tpu.workflows.create"], "_created_sampler",
+                        lambda s, modes, seed: s)
+    monkeypatch.setattr(psampling.Sampler, "sample_chunked",
+                        lambda self, C, gen, chunk=1000: torch.from_numpy(sweep(len(C))))
+    monkeypatch.setattr(JaxSampler, "sample_chunked", lambda self, C, rng, chunk=1000: sweep(
+        len(C)))
+    create_workflow(port, "0_tiny", torch.Generator())
+    jax_create_workflow(jsam, "0_tiny", jax.random.PRNGKey(0))
+    assert {f for f in _pngs(port)} == {f"created_0_tiny_{m}.png" for m in (10, 50, 100)}
+    for f, (img, nrow) in port.grids.items():
+        want, want_nrow = jsam.grids[f]
+        assert nrow == want_nrow and img.shape == want.shape == (2 * nrow, 2, 2, 1), f
+        np.testing.assert_array_equal(img, want)
+    assert np.isnan(port.grids["created_0_tiny_10.png"][0][:, 1, 1, 0][7::10]).all()
 
 
 # ------------------------------------------------------------------- CLI
