@@ -54,7 +54,10 @@ Phases, each of which exits non-zero on failure:
    gradients within ``TRAIN_TOL * max|f32|``; the device's busy share of one
    step from ``torch.profiler`` (after every timed phase);
 8. real: the real UCI digits of ``tests/fixtures/real_digits_shard.npz``
-   (32x32x1) staged as ``MNIST/processed/{train,test}.npz`` (1,297 / 500);
+   (32x32x1) written as the raw MNIST files a user places (gzipped IDX
+   under ``MNIST/raw/``, 1,297 train / 500 test) and packed by the port's
+   MNIST packer into ``MNIST/processed/{train,test}.npz``, bit-equal to the
+   fixture's split, the packing timed;
    the classifier trained on them through ``cli.train.main`` (it becomes the
    IS / FID feature model) and re-evaluated from ``_best`` through
    ``cli.test_model.main``; then MCGAN and CGAN at the MNIST configuration's
@@ -159,6 +162,23 @@ Phases, each of which exits non-zero on failure:
 18. real (continued): MCGlow and CGlow on the digits, ``REAL_GLOW_EPOCHS``
     epochs each, bits/dim per epoch side by side, and the five
     ``cli.sample`` calls of phase 9 on each ``_best``.
+19. scores cifar10 (after ``glow:``, in the trainer's folder): ``cli.make_stats
+    stats`` over the 50,000 CIFAR10-shaped train images through the seeded
+    InceptionV3 at full width, a 10,000-image ``generate --save_npy true``
+    dump of the trainer's MCGAN ``_best``, ``cli.test_generated generated``
+    on it (IS in 10 splits, FID against the stats file) and again against a
+    fresh sweep of the train split; seconds and images/s per step; scores
+    finite, 0 kernel launches.
+20. scores real (after phase 18): ``cli.make_stats stats`` on the digits
+    (the classifier's features), then for each of the eight generative
+    models' ``_best`` (MCGAN, CGAN, MCVAE, CVAE, MCPixelCNN, CPixelCNN,
+    MCGlow, CGlow) its ``generated_`` and ``created_`` dumps (drawn where no
+    earlier phase drew them: the VAEs' and PixelCNNs', which launch
+    ``mc_gated_matmul``) scored by ``cli.test_generated generated`` and
+    ``created``; ``report.process`` (``processed_result.json``), ``make_vis``
+    (``vis.sh``) and the learning curves' JSON; the paper's table, one row
+    per family, MC beside C: generated IS and FID, created DBI. Every score
+    finite, every cell and result file present.
 
 The last lines are the script's wall time, the card's name and power limit
 as ``nvidia-smi`` gives them, one JSON object listing every kernel, and
@@ -174,12 +194,14 @@ import argparse
 import contextlib
 import copy
 import functools
+import gzip
 import json
 import math
 import os
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -189,11 +211,14 @@ import torch
 import torch.nn.functional as F
 
 from mcgm_tpu_torch.bench import train_gan
+from mcgm_tpu_torch.cli import make_stats as cli_make_stats
 from mcgm_tpu_torch.cli import sample as cli_sample
+from mcgm_tpu_torch.cli import test_generated as cli_test_generated
 from mcgm_tpu_torch.cli import test_model as cli_test_model
 from mcgm_tpu_torch.cli import train as cli_train
 from mcgm_tpu_torch.config import process_control
-from mcgm_tpu_torch.data.datasets import _save_processed
+from mcgm_tpu_torch.data.datasets import (_DIGITS, _MNIST_FILES, _pack_mnist_like,
+                                          _save_processed, fetch_dataset)
 from mcgm_tpu_torch.evals.inception import InceptionV3, inception_feature_fn
 from mcgm_tpu_torch.io.checkpoint import to_numpy
 from mcgm_tpu_torch.io.images import read_png
@@ -205,6 +230,8 @@ from mcgm_tpu_torch.kernels import vq as kvq
 from mcgm_tpu_torch.models import build_model
 from mcgm_tpu_torch.models.pixelcnn import sample_codes, sample_codes_incremental
 from mcgm_tpu_torch.ops.layers import fold_pool
+from mcgm_tpu_torch.report import learning_curve
+from mcgm_tpu_torch.report import process as report_process
 from mcgm_tpu_torch.report.logger import Logger
 from mcgm_tpu_torch.train.loop import apply_family_overrides
 from mcgm_tpu_torch.train.optim import make_optimizer
@@ -233,7 +260,10 @@ CIFAR10_CLASSES = ["airplane", "automobile", "bird", "cat", "deer", "dog", "frog
 REAL_DIGITS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
                            "real_digits_shard.npz")
 REAL_TRAIN = 1297  # the rest of the 1,797 digits is the test split
-CLASSIFIER_EPOCHS, REAL_GAN_EPOCHS = 10, 20
+# the real digits' depth is the first cut when the script nears its time
+# limit: the two GANs and the two Glows took ~90 s and ~140-165 s at 20 and
+# 10 epochs (H100 80GB HBM3, 700 W), now half of that
+CLASSIFIER_EPOCHS, REAL_GAN_EPOCHS = 10, 10
 # VQ kernels: two codes whose float64 distances are closer than VQ_MARGIN *
 # (|x|^2 + max|e|^2) cannot be told apart by f32 sums in another order;
 # EMA sums of rows in another order within EMA_TOL * max|plain|
@@ -266,7 +296,7 @@ PIXELCNN_STEPS, PIXELCNN_EVAL_BATCHES, REAL_PIXELCNN_EPOCHS = 20, 40, 10
 # GLOW_RECON_TOL of x (f32 flows, bf16 coupling nets run the same both ways);
 # generate timed over a sweep of GLOW_SWEEP in chunks of GLOW_CHUNK
 GLOW_POSITIONS, GLOW_PER_FORWARD = (256, 64, 16), 48
-GLOW_STEPS, GLOW_EVAL_BATCHES, REAL_GLOW_EPOCHS = 20, 8, 10
+GLOW_STEPS, GLOW_EVAL_BATCHES, REAL_GLOW_EPOCHS = 20, 8, 5
 GLOW_RECON_TOL, GLOW_SWEEP, GLOW_CHUNK = 1e-3, 400, 128
 # a Glow's reverse divides by s = sigmoid(log_s + 2), so a sample can
 # overflow to NaN (the reference's create filters them): at least this share
@@ -927,17 +957,39 @@ def run_cgan(name_limit: str):
 
 
 # -------------------------------------------------------------------- real
-def stage_real_digits(data_dir: str) -> None:
-    """The repo's 1,797 real UCI digits (32x32x1 uint8) as
-    ``MNIST/processed/{train,test}.npz``: the first 1,297 train, the rest test."""
+def stage_real_digits(data_dir: str) -> dict:
+    """The repo's 1,797 real UCI digits (32x32x1 uint8) as the raw MNIST
+    files a user places, gzipped IDX under ``MNIST/raw/`` with the names of
+    ``_MNIST_FILES`` (the first 1,297 train, the rest test), packed by the
+    port's MNIST packer (with no md5s: they are not the published files),
+    then read through ``fetch_dataset``. The packed arrays must equal the
+    fixture's split bit for bit (32x32: no resample). Returns the record."""
     with np.load(REAL_DIGITS) as z:
         img, labels = z["img"], z["labels"]
     if img.dtype != np.uint8 or img.shape[1:] != (32, 32, 1):
         raise SystemExit(f"real digits: {img.dtype} {img.shape}, want uint8 [N,32,32,1]")
-    classes = [str(i) for i in range(10)]
-    root = os.path.join(data_dir, "MNIST")
-    _save_processed(root, "train", "label", img[:REAL_TRAIN], labels[:REAL_TRAIN], classes)
-    _save_processed(root, "test", "label", img[REAL_TRAIN:], labels[REAL_TRAIN:], classes)
+    raw = os.path.join(data_dir, "MNIST", "raw")
+    os.makedirs(raw, exist_ok=True)
+    splits = {"train": slice(0, REAL_TRAIN), "t10k": slice(REAL_TRAIN, None)}
+    for stem, sl in splits.items():
+        x, y = img[sl, :, :, 0], labels[sl].astype(np.uint8)
+        for kind, data in (("images-idx3", struct.pack(">iiii", 2051, *x.shape) + x.tobytes()),
+                           ("labels-idx1", struct.pack(">ii", 2049, len(y)) + y.tobytes())):
+            with gzip.open(os.path.join(raw, f"{stem}-{kind}-ubyte.gz"), "wb") as f:
+                f.write(data)
+    t0 = time.perf_counter()
+    _pack_mnist_like(os.path.dirname(raw), [(url, None) for url, _ in _MNIST_FILES], _DIGITS)
+    rec = {"pack_seconds": time.perf_counter() - t0, "raw_files": sorted(os.listdir(raw))}
+    ds = fetch_dataset("MNIST", data_dir=data_dir, verbose=False)
+    for split, stem in (("train", "train"), ("test", "t10k")):
+        sl = splits[stem]
+        rec[f"{split}_bit_equal"] = bool(np.array_equal(ds[split].img, img[sl])
+                                         and np.array_equal(ds[split].labels, labels[sl]))
+        rec[f"{split}_shape"] = list(ds[split].img.shape)
+    log("real digits from raw IDX files:", json.dumps(rec))
+    if not (rec["train_bit_equal"] and rec["test_bit_equal"]):
+        raise SystemExit("real digits: the packed MNIST files differ from the fixture")
+    return rec
 
 
 def run_real(name_limit: str, work: str):
@@ -945,7 +997,7 @@ def run_real(name_limit: str, work: str):
     through the CLIs' ``main``. Returns the launches by model, the result
     and the CLI arguments and output folder the workflows reuse."""
     data_dir, out_dir = os.path.join(work, "data"), os.path.join(work, "output")
-    stage_real_digits(data_dir)
+    staged = stage_real_digits(data_dir)
     base = ["--data_name", "MNIST", "--data_dir", data_dir, "--output_dir", out_dir]
     t0 = time.perf_counter()
     (cls,) = cli_train.main(base + ["--model_name", "classifier", "--control_name", "None",
@@ -995,8 +1047,8 @@ def run_real(name_limit: str, work: str):
         cols = [" ".join(f"{runs[m][k][e]:.4f}" if e < len(runs[m][k]) else "-" for k in keys)
                 for m in ("mcgan", "cgan")]
         log(f"real: {e + 1} | {cols[0]} | {cols[1]}")
-    result = {"card": name_limit, "classifier_accuracy": acc, "classifier_seconds": cls_wall,
-              "test_model": dict(tested.mean), **runs}
+    result = {"card": name_limit, "staged": staged, "classifier_accuracy": acc,
+              "classifier_seconds": cls_wall, "test_model": dict(tested.mean), **runs}
     log("real:", json.dumps(result))
     if bad:
         raise SystemExit("real failed: " + "; ".join(bad))
@@ -2406,6 +2458,148 @@ def run_real_glow(name_limit: str, base: list, out_dir: str):
     return launches, runs
 
 
+# ---------------------------------------------------------------- scores
+def _timed_call(steps: dict, name: str, images: int, fn):
+    """Run ``fn`` (a CLI's ``main``) to its end on the card; record its
+    seconds and images/s under ``steps[name]``; return what it returned."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    steps[name] = {"seconds": dt, "images": images, "images_per_s": images / dt}
+    return out
+
+
+def run_scores_cifar10(name_limit: str, data_dir: str, out_dir: str) -> dict:
+    """The offline scorers at InceptionV3's full width, in the trainer's
+    folder: ``cli.make_stats stats`` over the 50,000 CIFAR10-shaped train
+    images (the seeded InceptionV3 that ``write_trainer_inputs`` saved), a
+    10,000-image ``generate --save_npy true`` dump of the trainer's MCGAN
+    ``_best``, ``cli.test_generated generated`` on it (IS in 10 splits, FID
+    against the stats file), and the same again with the stats file set
+    aside, so that the FID's real side is a fresh sweep of the train split."""
+    argv = ["--data_name", "CIFAR10", "--model_name", "mcgan", "--control_name", "0.5",
+            "--data_dir", data_dir, "--output_dir", out_dir, "--device", str(DEV)]
+    steps, n_real, n_dump = {}, TRAINER_IMAGES["train"], 10 * 1000
+    zero_counts()  # the counted run of the scoring path
+    stats_path = _timed_call(steps, "make_stats", n_real, lambda: cli_make_stats.main(
+        "stats", argv))
+    (dump,) = _timed_call(steps, "generate", n_dump, lambda: cli_sample.main(
+        "generate", argv + ["--save_npy", "true"]))
+    (score,) = _timed_call(steps, "test_generated", n_dump, lambda: cli_test_generated.main(
+        "generated", argv))
+    os.replace(stats_path, stats_path + ".aside")
+    try:
+        (fresh,) = _timed_call(steps, "test_generated_fresh_sweep", n_real + n_dump,
+                               lambda: cli_test_generated.main("generated", argv))
+    finally:
+        os.replace(stats_path + ".aside", stats_path)
+    launches = counts()
+    with np.load(stats_path) as z:
+        stats_shapes = [list(z["mu"].shape), list(z["sigma"].shape)]
+    rec = {"card": name_limit, "steps": steps, "dump": list(np.shape(dump)),
+           "images_scored": score["images"], "is_10_splits": score["InceptionScore"],
+           "fid_stats_file": score["FID"], "fid_fresh_sweep": fresh["FID"],
+           "fid_relative_gap": abs(score["FID"] - fresh["FID"]) / abs(fresh["FID"]),
+           "stats_shapes": stats_shapes, "launches": launches}
+    log("scores cifar10:", json.dumps(rec))
+    values = (score["InceptionScore"], score["FID"], fresh["FID"], fresh["InceptionScore"])
+    bad = []
+    if not all(math.isfinite(v) for v in values):
+        bad.append(f"scores not finite: {values}")
+    if np.shape(dump) != (n_dump, 3, 32, 32) or score["images"] != n_dump:
+        bad.append(f"dump {np.shape(dump)}, {score['images']} images scored")
+    if stats_shapes != [[2048], [2048, 2048]]:
+        bad.append(f"stats file shapes {stats_shapes}")
+    if any(launches.values()):
+        bad.append(f"hand kernels launched {launches} (G and InceptionV3 have none)")
+    if bad:
+        raise SystemExit("scores cifar10 failed: " + "; ".join(bad))
+    return rec
+
+
+# (family, MC model and control, C model and control) of the paper's table
+SCORED_FAMILIES = (("GAN", ("mcgan", "0.5"), ("cgan", "0.5")),
+                   ("VAE", ("mcvae", "0.5"), ("cvae", "None")),
+                   ("PixelCNN", ("mcpixelcnn", "0.5"), ("cpixelcnn", "None")),
+                   ("Glow", ("mcglow", "0.5"), ("cglow", "None")))
+CURVE_METRICS = ("test/InceptionScore", "test/FID", "test/BCE", "test/MSE", "test/NLL",
+                 "test/Loss", "test/Accuracy")
+
+
+def run_scores_real(name_limit: str, base: list, out_dir: str):
+    """The paper's scores on the real digits: ``cli.make_stats stats``
+    (the classifier's features), then for each of the eight generative
+    models' ``_best`` its ``generated_`` and ``created_`` dumps (drawn with
+    ``cli.sample ... --save_npy true`` where the earlier phases drew none:
+    the VAEs and the PixelCNNs) scored by ``cli.test_generated generated``
+    (IS, 10 splits; FID) and ``created`` (DBI); then ``report.process``,
+    ``make_vis`` and the learning curves' JSON. Returns the launches (the
+    PixelCNN dumps run ``mc_gated_matmul``) and the record."""
+    steps, bad, table = {}, [], {}
+    zero_counts()  # the counted run of the scoring path
+    _timed_call(steps, "make_stats", REAL_TRAIN, lambda: cli_make_stats.main("stats", base))
+    for family, *models in SCORED_FAMILIES:
+        for model, ctrl in models:
+            argv = base + ["--model_name", model, "--control_name", ctrl]
+            tag = "_".join(["0", "MNIST", "label", model] + ([ctrl] if ctrl != "None" else []))
+            for wf, dump in (("generate", "generated"), ("create", "created")):
+                if not os.path.exists(os.path.join(out_dir, "npy", f"{dump}_{tag}.npy")):
+                    _timed_call(steps, f"{model} {wf}", 10 * 1000, lambda: cli_sample.main(
+                        wf, argv + ["--save_npy", "true"]))
+            (gen,) = _timed_call(steps, f"{model} test_generated", 10 * 1000,
+                                 lambda: cli_test_generated.main("generated", argv))
+            (cre,) = _timed_call(steps, f"{model} test_created", 10 * 1000,
+                                 lambda: cli_test_generated.main("created", argv))
+            table[model] = {"IS": gen["InceptionScore"], "FID": gen["FID"], "DBI": cre["DBI"],
+                            "generated_kept": gen["images"], "created_kept": cre["images"]}
+            if not all(math.isfinite(table[model][k]) for k in ("IS", "FID", "DBI")):
+                bad.append(f"{model}: scores not finite {table[model]}")
+            if min(gen["images"], cre["images"]) < GLOW_FINITE_MIN * 10 * 1000:
+                bad.append(f"{model}: too few finite images {gen['images']}, {cre['images']}")
+    launches = counts()
+    summary = _timed_call(steps, "process", 0, lambda: report_process.process(out_dir))
+    vis = report_process.make_vis(summary, out_dir)
+    curves = learning_curve.plot_curves(out_dir, CURVE_METRICS)
+    with open(os.path.join(out_dir, "processed_result.json")) as f:
+        processed = json.load(f)
+    for family, *models in SCORED_FAMILIES:
+        for model, ctrl in models:
+            cell = "_".join(["MNIST", "label", model] + ([ctrl] if ctrl != "None" else []))
+            have = processed.get(cell, {})
+            for metric in ("generated/InceptionScore", "generated/FID", "created/DBI"):
+                mean = have.get(metric, {}).get("mean")
+                if mean is None or not math.isfinite(mean):
+                    bad.append(f"processed_result.json: {cell} {metric} {mean}")
+            for kind in ("is_generated", "fid_generated", "dbi_created"):
+                if not os.path.exists(os.path.join(out_dir, "result", f"{kind}_0_{cell}.npy")):
+                    bad.append(f"no result file {kind}_0_{cell}.npy")
+    if "test/Accuracy" not in processed.get("MNIST_label_classifier", {}):
+        bad.append("processed_result.json: no classifier cell")
+    with open(vis) as f:
+        vis_lines = f.read().splitlines()[1:]
+    if len(vis_lines) != 3 * 8 or not all("mcgm_tpu_torch.cli.sample" in v for v in vis_lines):
+        bad.append(f"vis.sh: {len(vis_lines)} lines")
+    if len(curves) != len(CURVE_METRICS):
+        bad.append(f"curves: {[os.path.basename(c) for c in curves]}")
+    if launches["mc_gated_matmul"] == 0:
+        bad.append("the PixelCNN dumps launched no mc_gated_matmul")
+    log("scores real: family | MC IS, FID, DBI | C IS, FID, DBI (classifier features, "
+        "one seed)")
+    for family, (mc, _), (c, _) in SCORED_FAMILIES:
+        cols = [" ".join(f"{table[m][k]:.4f}" for k in ("IS", "FID", "DBI")) if m in table
+                else "-" for m in (mc, c)]
+        log(f"scores real: {family} | {cols[0]} | {cols[1]}")
+    rec = {"card": name_limit, "steps": steps, "table": table, "launches": launches,
+           "cells": sorted(processed), "vis_lines": len(vis_lines),
+           "curves": [os.path.basename(c) for c in curves]}
+    log("scores real:", json.dumps(rec))
+    if bad:
+        raise SystemExit("scores real failed: " + "; ".join(bad))
+    return launches, rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -2507,6 +2701,8 @@ def main() -> int:
                                                   os.path.join(work, "vqvae"))
         glow_launches, _, profile_glow = run_glow(name_limit, data_dir,
                                                   os.path.join(work, "glow"))
+        # the trainer's MCGAN and InceptionV3 weights, before the folder goes
+        run_scores_cifar10(name_limit, data_dir, os.path.join(work, "output"))
         shutil.rmtree(work, ignore_errors=True)
         cgan_launches, _, profile_cgan = run_cgan(name_limit)
         real_launches, _, (base, out_dir) = run_real(name_limit, work)
@@ -2514,6 +2710,7 @@ def main() -> int:
         real_vae_launches, _ = run_real_vae(name_limit, base, out_dir)
         real_px_launches, _ = run_real_pixelcnn(name_limit, base, out_dir)
         real_glow_launches, _ = run_real_glow(name_limit, base, out_dir)
+        scores_launches, _ = run_scores_real(name_limit, base, out_dir)
         # last, so that no timed run follows a profiler session
         rec = profile_cgan(args.profile or os.path.join(work, "profile"))
         log("cgan profile:", json.dumps({k: rec[k] for k in (
@@ -2620,7 +2817,8 @@ def main() -> int:
                for m, c in glow_launches.items()
                for path in ("step", "eval_batch", "generate_sweeps", "trainer")},
             **{f"real_{m}_{path}": c[path]["mc_gated_matmul"]
-               for m, c in real_glow_launches.items() for path in ("trainer", "workflows")}},
+               for m, c in real_glow_launches.items() for path in ("trainer", "workflows")},
+            "scores_real": scores_launches["mc_gated_matmul"]},
         "other_shapes": [{k: r[k] for k in vq_shapes + ("variant", "roofline_share")}
                          for r in mc_others + mc_glow]})
     log(f"wall: {time.perf_counter() - t_start:.1f} s for the whole script")

@@ -1,1 +1,3 @@
-"""Datasets as packed uint8 arrays and the loader that serves them from the card (port of ``mcgm_tpu/data``)."""
+"""Datasets: packers from raw files, packed uint8 arrays, channel
+statistics, and the loader that serves them from the card (port of
+``mcgm_tpu/data``)."""

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
 from ..data.loader import normalize_images
@@ -87,3 +88,12 @@ def extract_real_features(feature_fn, images_u8, batch_size: int = 256) -> torch
     images_u8 = torch.as_tensor(images_u8)
     return torch.cat([feature_fn(normalize_images(images_u8[i:i + batch_size]))[0]
                       for i in range(0, len(images_u8), batch_size)])
+
+
+def feature_moments(features: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
+    """FID's Gaussian of ``features [N, F]``: the mean and the unbiased
+    covariance, in float64 where the features lie, returned as numpy."""
+    f = features.double()
+    mu = f.mean(0)
+    g = f - mu
+    return mu.cpu().numpy(), (g.T @ g / (len(g) - 1)).cpu().numpy()

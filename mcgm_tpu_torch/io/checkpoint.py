@@ -74,20 +74,25 @@ class _Stub:
 
 
 class _ModelDictUnpickler(pickle.Unpickler):
+    def __init__(self, file, classes: dict | None = None):
+        super().__init__(file)
+        self._classes = {**_ALLOWED, **(classes or {})}
+
     def find_class(self, module, name):
         if (module == "numpy" or module.startswith("numpy.")) and name in _NUMPY:
             return super().find_class(module, name)
         if module == "builtins" and name in _BUILTINS:
             return super().find_class(module, name)
-        if (module, name) in _ALLOWED:
-            return _ALLOWED[(module, name)]
+        if (module, name) in self._classes:
+            return self._classes[(module, name)]
         return type(name, (_Stub,), {"__module__": f"stub:{module}"})
 
 
-def load_pickle(path: str):
-    """Unpickle ``path`` with the restricted unpickler above."""
+def load_pickle(path: str, classes: dict | None = None):
+    """Unpickle ``path`` with the restricted unpickler above; ``classes``
+    maps more ``(module, name)`` pairs to the classes to build."""
     with open(path, "rb") as f:
-        return _ModelDictUnpickler(f).load()
+        return _ModelDictUnpickler(f, classes).load()
 
 
 def _load_payload(path: str) -> dict:

@@ -3,9 +3,10 @@
 
 The JAX package writes with PIL; the port writes the PNG itself with
 ``zlib`` and ``struct``: 8-bit grayscale for one channel, 8-bit RGB for
-three, every row with filter 0. :func:`read_png` decodes such files (and
-any 8-bit grayscale or RGB PNG without interlacing), so a caller can check
-what was written without PIL.
+three, every row with filter 0. It reads without PIL too: :func:`read_png`
+decodes any non-interlaced PNG of 8 bits or fewer a sample (what was
+written here, and the datasets' files: Omniglot's 1-bit strokes, COIL100's
+RGB), :func:`read_ppm` binary PPMs.
 """
 
 from __future__ import annotations
@@ -68,20 +69,68 @@ def write_png(path: str, img: np.ndarray) -> None:
     os.replace(tmp, path)
 
 
-def _paeth(a: int, b: int, c: int) -> int:
-    p = a + b - c
-    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-    return a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+# PIL's ITU-R 601-2 luma in 16-bit fixed point (its "L24"), for convert("L")
+_LUMA = np.array([19595, 38470, 7471], np.uint32)
+_GRAY_SCALE = {1: 255, 2: 85, 4: 17, 8: 1}  # a gray sample of this depth to 8 bits
 
 
-def read_png(path: str) -> np.ndarray:
-    """The uint8 ``[H, W, C]`` pixels of an 8-bit, non-interlaced grayscale
-    or RGB PNG."""
+def _unfilter(raw: np.ndarray, bpp: int, path: str) -> np.ndarray:
+    """Undo the per-row filters of ``raw [H, 1 + stride]``; ``bpp`` is the
+    filters' left distance in bytes (it divides ``stride``)."""
+    h, stride = raw.shape[0], raw.shape[1] - 1
+    out = np.zeros((h, stride), np.uint8)
+    prev = out[0]  # the row above the first is zeros
+    for y in range(h):
+        kind, line = raw[y, 0], raw[y, 1:]
+        if kind == 1:  # Sub: a running sum mod 256 along each byte lane
+            line = np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
+        elif kind == 2:  # Up
+            line = line + prev
+        elif kind in (3, 4):  # Average, Paeth: each byte reads the one decoded before
+            cur, up = line.tolist(), prev.tolist()
+            for x in range(stride):
+                left = cur[x - bpp] if x >= bpp else 0
+                if kind == 3:
+                    cur[x] = (cur[x] + ((left + up[x]) >> 1)) & 0xFF
+                    continue
+                up_left = up[x - bpp] if x >= bpp else 0
+                p = left + up[x] - up_left
+                pa, pb, pc = abs(p - left), abs(p - up[x]), abs(p - up_left)
+                pred = left if pa <= pb and pa <= pc else (up[x] if pb <= pc else up_left)
+                cur[x] = (cur[x] + pred) & 0xFF
+            line = cur
+        elif kind != 0:
+            raise ValueError(f"{path}: unknown filter {kind} in row {y}")
+        out[y] = line
+        prev = out[y]
+    return out
+
+
+def _to_mode(img: np.ndarray, mode: str | None) -> np.ndarray:
+    """``[H, W, 1|3]`` uint8 as PIL's ``convert(mode)`` gives it:
+    ``"L"`` one channel (RGB by PIL's fixed-point luma), ``"RGB"`` three
+    (gray replicated), ``None`` as it is."""
+    if mode is None or (mode == "L") == (img.shape[-1] == 1):
+        return img
+    if mode == "RGB":
+        return np.repeat(img, 3, axis=-1)
+    if mode == "L":
+        return ((img.astype(np.uint32) @ _LUMA + 0x8000) >> 16).astype(np.uint8)[..., None]
+    raise ValueError(f"mode must be 'L', 'RGB' or None, got {mode!r}")
+
+
+def read_png(path: str, mode: str | None = None) -> np.ndarray:
+    """The uint8 ``[H, W, C]`` pixels of a non-interlaced PNG: gray of 1, 2,
+    4 or 8 bits (scaled to 0..255, so 1-bit 0 / 1 reads 0 / 255), gray with
+    alpha, RGB, RGBA, or palette (1-8 bits). Alpha is dropped, a palette
+    looked up: gray reads as one channel, the rest as three, unless ``mode``
+    (``"L"`` or ``"RGB"``) asks for what PIL's ``convert(mode)`` gives.
+    16-bit samples and Adam7 interlacing raise, naming the file."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
-    pos, idat, header = 8, [], None
+    pos, idat, header, palette = 8, [], None, None
     while pos < len(data):
         (n,) = struct.unpack(">I", data[pos:pos + 4])
         kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
@@ -90,6 +139,8 @@ def read_png(path: str) -> np.ndarray:
         pos += 12 + n
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -97,30 +148,65 @@ def read_png(path: str) -> np.ndarray:
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     w, h, depth, color, _, _, interlace = header
-    channels = {v: k for k, v in _COLOR_TYPE.items()}.get(color)
-    if depth != 8 or channels is None or interlace:
-        raise ValueError(f"{path}: only 8-bit non-interlaced gray or RGB is read")
-    bpp, stride = channels, w * channels
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, stride + 1)
-    out = np.zeros((h, stride), np.uint8)
-    prev = np.zeros(stride, np.uint8)
-    for y in range(h):
-        kind, line = raw[y, 0], raw[y, 1:].copy()
-        if kind == 2:
-            line += prev
-        elif kind in (1, 3, 4):  # these read the bytes decoded just before
-            cur, up = line.tolist(), prev.tolist()
-            for x in range(stride):
-                left = cur[x - bpp] if x >= bpp else 0
-                up_left = up[x - bpp] if x >= bpp else 0
-                pred = (left if kind == 1 else (left + up[x]) // 2 if kind == 3
-                        else _paeth(left, up[x], up_left))
-                cur[x] = (cur[x] + pred) & 0xFF
-            line = np.array(cur, np.uint8)
-        elif kind != 0:
-            raise ValueError(f"{path}: unknown filter {kind} in row {y}")
-        out[y] = prev = line
-    return out.reshape(h, w, channels)
+    samples = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}.get(color)
+    if samples is None:
+        raise ValueError(f"{path}: unknown PNG colour type {color}")
+    if interlace:
+        raise ValueError(f"{path}: Adam7-interlaced PNGs are not read")
+    if depth == 16 or (depth != 8 and color not in (0, 3)):
+        raise ValueError(f"{path}: {depth}-bit samples of colour type {color} are not read")
+    if color == 3 and palette is None:
+        raise ValueError(f"{path}: palette PNG without a PLTE chunk")
+    bits = w * samples * depth
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    raw = raw[:h * (1 + -(-bits // 8))].reshape(h, -1)
+    rows = _unfilter(raw, max(1, samples * depth // 8), path)
+    if depth < 8:  # unpack the samples, most significant first
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        rows = ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(h, -1)[:, :w]
+    px = rows.reshape(h, w, samples)
+    if color == 3:
+        px = palette[np.minimum(px[..., 0], len(palette) - 1)]
+    elif color == 0:
+        px = px * np.uint8(_GRAY_SCALE[depth])
+    else:
+        px = px[..., :1] if color == 4 else px[..., :3]  # alpha dropped
+    return _to_mode(np.ascontiguousarray(px), mode)
+
+
+def read_ppm(path: str, mode: str | None = None) -> np.ndarray:
+    """The uint8 ``[H, W, 3]`` pixels of a binary PPM (``P6``, maxval 255;
+    ``#`` comments in the header), converted as :func:`read_png` does."""
+    with open(path, "rb") as f:
+        data = f.read()
+    fields, pos = [], 0
+    while len(fields) < 4:
+        while pos < len(data) and data[pos:pos + 1].isspace():
+            pos += 1
+        if data[pos:pos + 1] == b"#":
+            pos = data.index(b"\n", pos)
+            continue
+        start = pos
+        while pos < len(data) and not data[pos:pos + 1].isspace():
+            pos += 1
+        fields.append(data[start:pos])
+    if fields[0] != b"P6" or int(fields[3]) != 255:
+        raise ValueError(f"{path}: only binary PPM (P6) with maxval 255 is read")
+    w, h = int(fields[1]), int(fields[2])
+    px = np.frombuffer(data, np.uint8, count=h * w * 3, offset=pos + 1)
+    return _to_mode(px.reshape(h, w, 3).copy(), mode)
+
+
+def read_image(path: str, mode: str | None = None) -> np.ndarray:
+    """A PNG or binary PPM by its extension (:func:`read_png`,
+    :func:`read_ppm`); any other format, JPEG included, raises naming the
+    file: this package decodes no JPEG."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".png":
+        return read_png(path, mode)
+    if ext == ".ppm":
+        return read_ppm(path, mode)
+    raise ValueError(f"{path}: only PNG and binary PPM files are decoded here, not {ext!r}")
 
 
 def save_image_grid(img, path: str, nrow: int = 10, padding: int = 2,

@@ -1,1 +1,3 @@
-"""Run records: the experiment logger and step timing (port of ``mcgm_tpu/report``)."""
+"""Run records and results: the experiment logger, step timing, results
+over seeds, learning curves and parameter tables (port of
+``mcgm_tpu/report``)."""

@@ -48,7 +48,7 @@ import yaml
 from ..config import make_model_tag, process_control
 from ..data.datasets import fetch_dataset, process_dataset
 from ..data.loader import make_data_loader
-from ..evals.features import extract_real_features, make_feature_fn
+from ..evals.features import extract_real_features, feature_moments, make_feature_fn
 from ..evals.metrics import frechet_distance, inception_score, make_device_metrics
 from ..io.checkpoint import AsyncCheckpointer, load_checkpoint, to_numpy, to_torch
 from ..io.jax_import import from_jax_variables, to_jax_gan_variables
@@ -386,11 +386,8 @@ class Experiment:
         t0 = time.perf_counter()
         self.feature_fn = make_feature_fn(self.cfg, self.device)
         if self.feature_fn is not None:
-            real = extract_real_features(self.feature_fn, self.loaders["train"].staged()[0],
-                                         self.cfg["batch_size"]["test"]).double()
-            mu = real.mean(0)
-            g = real - mu
-            self.real_stats = (mu.cpu().numpy(), (g.T @ g / (len(g) - 1)).cpu().numpy())
+            self.real_stats = feature_moments(extract_real_features(
+                self.feature_fn, self.loaders["train"].staged()[0], self.cfg["batch_size"]["test"]))
         self.epoch_stats[-1]["real_features_seconds"] = time.perf_counter() - t0
 
     def gan_eval_moments(self, C: np.ndarray, chunk: int):
