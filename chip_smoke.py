@@ -179,6 +179,30 @@ Phases, each of which exits non-zero on failure:
     (``vis.sh``) and the learning curves' JSON; the paper's table, one row
     per family, MC beside C: generated IS and FID, created DBI. Every score
     finite, every cell and result file present.
+21. gan fused g pass (after ``train:``): the CIFAR10 MCGAN step with
+    ``fuse_g_pass``, ``remat`` and both from one state and z: ``remat``
+    against the plain step and against ``fuse_g_pass`` alone (losses,
+    parameters, BatchNorm statistics, ``u`` within ``TRAIN_TOL``), the fused
+    pass's fakes against the plain step's (``KERNEL_TOL``), the fused step
+    against the plain one fed those fakes; images/s, ``first_dblock``
+    launches a step (6; 12 under ``remat``: each recomputed D pass launches
+    it again), peak memory;
+22. glow reversible (after ``glow:``): MCGlow and CGlow at the CIFAR10
+    width: images/s, ``mc_gated_matmul`` launches a step and peak memory
+    with no remat, ``remat_flows`` and ``reversible_flows``; one step with
+    ``remat_flows`` against one with ``reversible_flows`` from the state 13
+    steps reached (bits/dim and gradients within ``TRAIN_TOL``, each
+    rebuilt flow input within ``GLOW_RECON_TOL``); the rebuild's error with
+    random zero convs, reported;
+23. remat single: the VAE, VQ-VAE, PixelCNN and classifier steps with
+    ``remat`` against without (``vq_ema`` still 3 launches a step), peak
+    memory for each;
+24. preempt: the classifier trainer stopped by its own SIGTERM at a step
+    checkpoint and resumed with ``resume_mode=1``, bit-equal to an
+    uninterrupted run (cuDNN deterministic for the phase);
+25. reference import: a reference-keyed ``state_dict`` for each of the ten
+    models at the CIFAR10 width converted, loaded on the card and on the
+    CPU, and one pass of each held to the other.
 
 The last lines are the script's wall time, the card's name and power limit
 as ``nvidia-smi`` gives them, one JSON object listing every kernel, and
@@ -229,7 +253,7 @@ from mcgm_tpu_torch.kernels import mc_gate as kmc
 from mcgm_tpu_torch.kernels import vq as kvq
 from mcgm_tpu_torch.models import build_model
 from mcgm_tpu_torch.models.pixelcnn import sample_codes, sample_codes_incremental
-from mcgm_tpu_torch.ops.layers import fold_pool
+from mcgm_tpu_torch.ops.layers import batch_stat_slices, fold_pool
 from mcgm_tpu_torch.report import learning_curve
 from mcgm_tpu_torch.report import process as report_process
 from mcgm_tpu_torch.report.logger import Logger
@@ -2599,6 +2623,545 @@ def run_scores_real(name_limit: str, base: list, out_dir: str):
         raise SystemExit("scores real failed: " + "; ".join(bad))
     return launches, rec
 
+# ------------------------------------------------- the steps' last options
+def _peak_gib(fn) -> float:
+    """The most device memory ``fn`` allocates above what was allocated
+    before it (the model, its optimizer and gradients, and what earlier
+    phases keep), GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - before) / 2 ** 30
+
+
+def _grads_of(model) -> dict:
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.grad is not None}
+
+
+def _worst_ratio(got: dict, want: dict) -> tuple[float, str | None]:
+    """The largest ``max|got - want| / max|want|`` over the tensors of
+    ``want`` (a tensor that is 0 in ``want`` must be 0 in ``got``)."""
+    worst, at = 0.0, None
+    for k, w in want.items():
+        top, err = w.float().abs().max().item(), (got[k].float() - w.float()).abs().max().item()
+        r = err / top if top > 0 else (math.inf if err else 0.0)
+        if r >= worst:
+            worst, at = r, k
+    return worst, at
+
+
+def _rebuilt_flow_inputs(ts, batch, noise, step, K: int) -> tuple[dict, list]:
+    """One step of ``ts`` (a Glow with ``reversible_flows``) that records
+    each flow's input in the forward and as the reversible backward rebuilds
+    it; returns the step's result and the relative error of each rebuilt
+    input (max abs error over the input's max abs), in forward order."""
+    from mcgm_tpu_torch.models.glow import Flow
+    from mcgm_tpu_torch.ops import reversible as prev
+
+    inputs = []
+    hooks = [m.register_forward_pre_hook(lambda mod, a: inputs.append(a[0].detach().clone()))
+             for m in ts.model.modules() if isinstance(m, Flow)]
+    prev.RECONSTRUCTED = []
+    try:
+        res = step(ts, batch, noise=noise)
+        torch.cuda.synchronize()
+        rebuilt = prev.RECONSTRUCTED
+    finally:
+        prev.RECONSTRUCTED = None
+        for h in hooks:
+            h.remove()
+    # the backward visits the blocks last to first, each block's flows last to first
+    blocks = [rebuilt[i:i + K] for i in range(0, len(rebuilt), K)][::-1]
+    flat = [x for blk in blocks for _, x in blk[::-1]]
+    if len(flat) != len(inputs):
+        raise SystemExit(f"glow reversible: rebuilt {len(flat)} flow inputs of {len(inputs)}")
+    return res, [(a - b).abs().max().item() / a.abs().max().item() for a, b in zip(inputs, flat)]
+
+
+def run_glow_reversible(name_limit: str):
+    """MCGlow and CGlow at the CIFAR10 width (hidden 512, K 16, L 3, B=128,
+    bf16 convs, through ``mc_gated_matmul``) from one DDI'd state: 3 + 10
+    steps with no remat, with ``remat_flows`` and with ``reversible_flows``
+    (images/s, launches a step, the peak memory of a step); then, from the
+    state the ``remat_flows`` run reached (the zero convs grown by 13
+    updates), one step with each of the two: bits/dim, and every gradient
+    within ``TRAIN_TOL * max|remat|`` over all the gradients (per tensor
+    the worst ratio is reported: a coupling net's weights whose gradients
+    are ~1e-4 of the largest are a near-cancelling sum, which the rebuild's
+    rounding moves by a few percent of themselves), and each flow input as
+    the reversible backward rebuilds it within ``GLOW_RECON_TOL`` of the one
+    the forward saw (worst over the 48 flows). Reported, not checked: the
+    rebuild from the DDI'd state with every zero conv N(0, 1e-2) (couplings
+    whose ``s`` reaches far below 1, so f32 rounding compounds over the
+    flows)."""
+    from mcgm_tpu_torch.models.glow import ZeroConv2d
+
+    g = torch.Generator(device=DEV).manual_seed(21)
+    batch = {"img": torch.rand((128, 32, 32, 3), generator=g, device=DEV) * 2 - 1,
+             "label": torch.arange(128, device=DEV) % 10}
+    noise = torch.rand((128, 32, 32, 3), generator=g, device=DEV)
+    step = make_train_step(skip_nonfinite=True)
+    opts = {"none": dict(remat_flows=False, reversible_flows=False),
+            "remat_flows": dict(remat_flows=True, reversible_flows=False),
+            "reversible_flows": dict(remat_flows=False, reversible_flows=True)}
+    out, bad, launches = {}, [], {}
+    for name in ("mcglow", "cglow"):
+        cfg = glow_cfg(name)
+        K = cfg["glow"]["K"]
+        model = build_model(cfg, DEV)
+        with torch.no_grad():
+            model(batch, train=True, ddi=True, noise=noise)
+        state0 = {k: t.clone() for k, t in model.state_dict().items()}
+
+        def fresh(opt, state):
+            for k, v in opts[opt].items():  # the flags build_model sets from the config
+                setattr(model, k, v)
+            model.load_state_dict(state)
+            return TrainState(model, make_optimizer(model.parameters(), cfg,
+                                                    grad_clip=cfg["grad_clip"]))
+
+        rec, state1 = {}, None
+        for opt in opts:
+            ts = fresh(opt, state0)
+            timed, _ = glow_steps(ts, batch, noise, step, TRAIN_STEPS, TRAIN_WARMUP)
+            rec[opt] = {"images_per_s": timed["images_per_s"], "ms_per_step": timed["ms_per_step"],
+                        "launches_per_step": timed["launches"] / TRAIN_STEPS,
+                        "bits_per_dim": timed["bits_per_dim"][-1],
+                        "peak_mem_gib": _peak_gib(lambda: step(ts, batch, noise=noise))}
+            if opt == "remat_flows":
+                state1 = {k: t.clone() for k, t in model.state_dict().items()}
+            del ts
+            torch.cuda.empty_cache()
+        first = {}
+        for opt in ("remat_flows", "reversible_flows"):
+            ts = fresh(opt, state1)
+            zero_counts()
+            if opt == "reversible_flows":
+                res, errs = _rebuilt_flow_inputs(ts, batch, noise, step, K)
+                rec[opt]["reconstruction_rel_err_by_flow"] = errs
+                rec[opt]["reconstruction_worst_rel_err"] = max(errs)
+            else:
+                res = step(ts, batch, noise=noise)
+                torch.cuda.synchronize()
+            rec[opt]["step_launches"] = counts()["mc_gated_matmul"]
+            rec[opt]["step_bits_per_dim"] = float(res["loss"])
+            rec[opt]["step_skipped"] = float(res["skipped"])
+            first[opt] = _grads_of(model)
+            model.zero_grad(set_to_none=True)
+            del ts
+        worst, at = _worst_ratio(first["reversible_flows"], first["remat_flows"])
+        lr_, lv = rec["remat_flows"]["step_bits_per_dim"], rec["reversible_flows"]["step_bits_per_dim"]
+        ratios = sorted(((first["reversible_flows"][k] - w).abs().max().item()
+                         / max(w.abs().max().item(), 1e-30), k, w.abs().max().item())
+                        for k, w in first["remat_flows"].items())[::-1]
+        top_all = max(w.abs().max().item() for w in first["remat_flows"].values())
+        err_all = max((first["reversible_flows"][k] - w).abs().max().item()
+                      for k, w in first["remat_flows"].items())
+        cmp = {"grad_err_share_of_max": err_all / top_all, "grad_max_abs": top_all,
+               "grad_worst_ratio_per_tensor": worst, "grad_worst_at": at,
+               "grad_ratios_top": [[r, k, top] for r, k, top in ratios[:6]],
+               "grad_ratio_median": ratios[len(ratios) // 2][0],
+               "bits_per_dim": {"remat_flows": lr_, "reversible_flows": lv}}
+        del first
+        # the stress case: every zero conv N(0, 1e-2) on the DDI'd state
+        ts = fresh("reversible_flows", state0)
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, ZeroConv2d):
+                    m.conv.weight.normal_(0.0, 1e-2, generator=g)
+        res, errs = _rebuilt_flow_inputs(ts, batch, noise, step, K)
+        stress = {"reconstruction_rel_err_by_flow": errs, "skipped": float(res["skipped"])}
+        del ts, model
+        torch.cuda.empty_cache()
+        if not (err_all <= TRAIN_TOL * top_all and abs(lv - lr_) <= TRAIN_TOL * abs(lr_)):
+            bad.append(f"{name} reversible vs remat_flows: {cmp}")
+        want = {"none": GLOW_PER_FORWARD, "remat_flows": 2 * GLOW_PER_FORWARD,
+                "reversible_flows": 2 * GLOW_PER_FORWARD}
+        for opt, n in want.items():
+            if rec[opt]["launches_per_step"] != n or rec[opt].get("step_launches", n) != n \
+                    or rec[opt].get("step_skipped"):
+                bad.append(f"{name} {opt}: {rec[opt]}, want {n} launches a step")
+        if not rec["reversible_flows"]["reconstruction_worst_rel_err"] <= GLOW_RECON_TOL:
+            bad.append(f"{name}: a rebuilt flow input is off by "
+                       f"{rec['reversible_flows']['reconstruction_worst_rel_err']}")
+        launches[name] = rec["reversible_flows"]["step_launches"]
+        out[name] = dict(rec, reversible_vs_remat=cmp, stress_random_zero_convs=stress)
+        log(f"glow reversible {name}:", json.dumps({"card": name_limit, "batch": 128, **out[name]}))
+    if bad:
+        raise SystemExit("glow reversible failed: " + "; ".join(bad))
+    return launches, out
+
+
+def _gan_state_errs(state: dict, ref: dict, lr: float, d_iter: int) -> dict:
+    """Per kind (parameters, BatchNorm statistics, ``u``), the worst
+    ``max|state - ref|`` over ``TRAIN_TOL * max|ref|`` (parameters: plus
+    ``2 lr`` per Adam update the tensor took, the reach of an update whose
+    gradient is near 0 and takes the other sign)."""
+    worst = {"parameters": 0.0, "batch_stats": 0.0, "u": 0.0}
+    for k, b in ref.items():
+        kind = ("batch_stats" if k.endswith(("running_mean", "running_var"))
+                else "u" if k.endswith(".u") else "parameters")
+        if kind == "parameters" and k.endswith("codebook"):
+            continue
+        updates = d_iter if k.startswith("discriminator") else 1
+        allowance = 2 * lr * updates if kind == "parameters" else 0.0
+        err = (state[k].float() - b.float()).abs().max().item()
+        worst[kind] = max(worst[kind], err / (TRAIN_TOL * b.float().abs().max().item()
+                                              + allowance + 1e-30))
+    return worst
+
+
+def run_gan_fused(name_limit: str):
+    """The CIFAR10 MCGAN step (B=128, ``d_iter`` 5) with ``fuse_g_pass``,
+    with ``remat`` and with both, from one state and z:
+
+    - ``remat`` against the plain step and both against ``fuse_g_pass``:
+      losses within ``TRAIN_TOL`` of the largest, parameters, BatchNorm
+      statistics and ``u`` within ``TRAIN_TOL * max|ref|`` (parameters plus
+      the Adam updates' reach);
+    - the fused G pass's fakes against the plain step's ``d_iter``
+      ``generate`` calls within ``KERNEL_TOL * max|plain|`` (bf16 convs at
+      another batch round otherwise), its BatchNorm statistics and the
+      step's ``Loss_D``, parameters and ``u`` against the plain step's as
+      above;
+    - the fused step against the plain step fed the fused pass's fakes:
+      every loss, parameters, ``u`` as above. ``Loss_G`` of the fused step
+      against the plain one is reported with the plain step's own change
+      when its fakes move by one bf16 unit (the d_iter Adam updates of D
+      amplify either);
+
+    then images/s over 3 + 10 steps, ``first_dblock`` launches a step and
+    the peak memory of a step, for each."""
+    cfg = train_gan.bench_config()
+    lr, d_iter = train_gan.LR, train_gan.D_ITER
+    flags = {"plain": {}, "fuse_g_pass": dict(fuse_g_pass=True), "remat": dict(remat=True),
+             "both": dict(fuse_g_pass=True, remat=True)}
+    g = torch.Generator(device=DEV).manual_seed(7)
+    rec, bad, launches, after, fakes = {}, [], {}, {}, {}
+
+    def one_step(f, fed=None):
+        """One step from the seeded state; ``fed``: the fakes the D passes'
+        ``generate`` calls return (G still runs, so its statistics move)."""
+        ts, batch = train_gan.bench_state(cfg, DEV)
+        model, real = ts.model, ts.model.generate
+        seen = []
+
+        def generate(C, zz, train=False):
+            x = real(C, zz, train)
+            if torch.is_grad_enabled() or len(seen) >= d_iter:
+                return x
+            seen.append(x.detach().clone())
+            return fed[len(seen) - 1] if fed is not None else x
+
+        model.generate = generate
+        zero_counts()
+        got = make_gan_train_step(d_iter, **f)(ts, batch, z=z)
+        torch.cuda.synchronize()
+        n = counts()["first_dblock"]
+        model.generate = real
+        return (ts, batch, {k: float(v) for k, v in got.items()}, n,
+                {k: t.detach().clone() for k, t in model.state_dict().items()}, seen)
+
+    z = [torch.randn((cfg["batch_size"]["train"], cfg["gan"]["latent_size"]), generator=g,
+                     device=DEV) for _ in range(d_iter + 1)]
+    for name, f in flags.items():
+        ts, batch, losses, n, state, seen = one_step(f)
+        after[name] = (losses, state)
+        if name == "plain":
+            fakes["plain"] = seen
+        r = {"launches": n, "losses": losses}
+        want = (d_iter + 1) * (2 if f.get("remat") else 1)
+        if n != want:
+            bad.append(f"{name}: {n} first_dblock launches a step, want {want}")
+        step = make_gan_train_step(d_iter, **f)
+        timed = train_gan.time_steps(ts, batch, step, TRAIN_STEPS, TRAIN_WARMUP)
+        zero_counts()
+        r.update(images_per_s=timed["images_per_sec"], ms_per_step=timed["ms_per_step"],
+                 peak_mem_gib=_peak_gib(lambda: step(ts, batch)))
+        r["launches_per_step_timed"] = timed["first_dblock_launches_per_step"]
+        rec[name] = r
+        launches[name] = n
+        del ts, batch
+        torch.cuda.empty_cache()
+    # the fused pass's fakes, out of the fused model's own pass
+    ts, batch = train_gan.bench_state(cfg, DEV)
+    with torch.no_grad(), batch_stat_slices(ts.model.generator, d_iter):
+        fused = ts.model.generate(batch["label"].repeat(d_iter), torch.cat(z[:d_iter]),
+                                  train=True).chunk(d_iter)
+    del ts
+    fake_err = max((a - b).abs().max().item() for a, b in zip(fused, fakes["plain"]))
+    fake_top = max(b.abs().max().item() for b in fakes["plain"])
+    _, _, fed_losses, _, fed_state, _ = one_step({}, fed=list(fused))
+    ulp = torch.Generator(device=DEV).manual_seed(3)
+    nudged = [x + torch.randint(-1, 2, x.shape, generator=ulp, device=DEV) * 2.0 ** -8 * x.abs()
+              for x in fakes["plain"]]
+    _, _, nudged_losses, _, _, _ = one_step({}, fed=nudged)
+
+    def losses_err(a, b):
+        scale = max(abs(v) for v in b.values())
+        return max(abs(a[k] - v) for k, v in b.items()) / scale
+
+    checks = {
+        "remat_vs_plain": (losses_err(after["remat"][0], after["plain"][0]),
+                           _gan_state_errs(after["remat"][1], after["plain"][1], lr, d_iter)),
+        "both_vs_fuse_g_pass": (losses_err(after["both"][0], after["fuse_g_pass"][0]),
+                                _gan_state_errs(after["both"][1], after["fuse_g_pass"][1], lr,
+                                                d_iter)),
+        "fuse_g_pass_vs_plain_fed_its_fakes": (
+            losses_err(after["fuse_g_pass"][0], fed_losses),
+            _gan_state_errs(after["fuse_g_pass"][1], fed_state, lr, d_iter)),
+    }
+    fused_vs_plain = _gan_state_errs(after["fuse_g_pass"][1], after["plain"][1], lr, d_iter)
+    scale = max(abs(v) for v in after["plain"][0].values())
+    loss_d_err = abs(after["fuse_g_pass"][0]["Loss_D"] - after["plain"][0]["Loss_D"]) / scale
+    cmp = {k: {"loss_err_share_of_scale": e, "worst_share_of_tol": w}
+           for k, (e, w) in checks.items()}
+    cmp["fuse_g_pass_vs_plain"] = {
+        "fakes_max_abs_err": fake_err, "fakes_max_abs": fake_top,
+        "loss_d_err_share_of_scale": loss_d_err, "worst_share_of_tol": fused_vs_plain,
+        "loss_g": {"fuse_g_pass": after["fuse_g_pass"][0]["Loss_G"],
+                   "plain": after["plain"][0]["Loss_G"],
+                   "plain_fakes_moved_one_bf16_unit": nudged_losses["Loss_G"]}}
+    for k, (e, w) in checks.items():
+        if not (e <= TRAIN_TOL and max(w.values()) <= 1.0):
+            bad.append(f"{k}: {cmp[k]}")
+    if not (fake_err <= KERNEL_TOL * fake_top and loss_d_err <= TRAIN_TOL
+            and max(fused_vs_plain.values()) <= 1.0):
+        bad.append(f"fuse_g_pass vs plain: {cmp['fuse_g_pass_vs_plain']}")
+    log("gan fused g pass:", json.dumps({"card": name_limit, "batch": cfg["batch_size"]["train"],
+                                         "d_iter": d_iter, **rec, "checks": cmp}))
+    if bad:
+        raise SystemExit("gan fused g pass failed: " + "; ".join(bad))
+    return launches, rec
+
+
+def _single_cfg(name: str) -> dict:
+    cfg = apply_family_overrides(process_control({
+        "data_name": "CIFAR10", "model_name": name, "ae_name": "vqvae",
+        "control": {"controller_rate": "0.5"} if name.startswith("mc") else {}}))
+    cfg["classes_size"] = 10
+    return cfg
+
+
+def run_remat_single(name_limit: str):
+    """The generic step of MCVAE, VQ-VAE, MCPixelCNN and the classifier at
+    the CIFAR10 width (B=128; the PixelCNN on random 8x8 code grids) with
+    ``remat`` against without, 2 steps from one state, batch and noise:
+    losses within ``TRAIN_TOL * |plain|``, parameters within ``TRAIN_TOL *
+    max|plain|`` plus the Adam updates' reach, buffers within ``TRAIN_TOL *
+    max|plain|``; the kernels' launches a step (``vq_ema`` 3 either way) and
+    the peak memory of a step."""
+    g = torch.Generator(device=DEV).manual_seed(31)
+    out, bad = {}, []
+    for name in ("mcvae", "vqvae", "mcpixelcnn", "classifier"):
+        cfg = _single_cfg(name)
+        B = 128
+        img = (torch.randint(0, cfg["pixelcnn"]["num_embedding"], (B, 8, 8), generator=g,
+                             device=DEV) if name == "mcpixelcnn"
+               else torch.rand((B, 32, 32, 3), generator=g, device=DEV) * 2 - 1)
+        batch = {"img": img, "label": torch.arange(B, device=DEV) % 10}
+        rec, ref = {}, None
+        for remat in (False, True):
+            model = build_model(cfg, DEV)
+            rng = torch.Generator(DEV).manual_seed(5) if name == "mcvae" else None
+            ts = TrainState(model, make_optimizer(model.parameters(), cfg,
+                                                  grad_clip=cfg.get("grad_clip")), rng=rng)
+            step = make_train_step(remat=remat)
+            zero_counts()
+            losses = [float(step(ts, batch)["loss"]) for _ in range(2)]
+            torch.cuda.synchronize()
+            c = {k: v / 2 for k, v in counts().items()}
+            state = {k: t.detach().clone() for k, t in model.state_dict().items()}
+            r = {"losses": losses, "launches_per_step": c,
+                 "peak_mem_gib": _peak_gib(lambda: step(ts, batch))}
+            if ref is None:
+                ref = (losses, state)
+            else:
+                worst = 0.0
+                for k, b in ref[1].items():
+                    allowance = 2 * 2 * cfg["lr"] if k in dict(model.named_parameters()) else 0.0
+                    err = (state[k].float() - b.float()).abs().max().item()
+                    worst = max(worst, err / (TRAIN_TOL * b.float().abs().max().item()
+                                              + allowance + 1e-30))
+                loss_err = max(abs(a - b) for a, b in zip(losses, ref[0]))
+                r["vs_plain"] = {"loss_max_abs_err": loss_err, "worst_share_of_tol": worst}
+                if not (loss_err <= TRAIN_TOL * max(abs(x) for x in ref[0]) and worst <= 1.0):
+                    bad.append(f"{name} remat vs plain: {r['vs_plain']}")
+            rec["remat" if remat else "plain"] = r
+            del ts, model
+            torch.cuda.empty_cache()
+        want_ema = 3.0 if name == "vqvae" else 0.0
+        for k, r in rec.items():
+            if r["launches_per_step"]["vq_ema"] != want_ema:
+                bad.append(f"{name} {k}: vq_ema {r['launches_per_step']}, want {want_ema}")
+        out[name] = rec
+        log(f"remat single {name}:", json.dumps({"card": name_limit, **rec}))
+    if bad:
+        raise SystemExit("remat single failed: " + "; ".join(bad))
+    return {k: v["remat"]["launches_per_step"] for k, v in out.items()}, out
+
+
+# the imported VQ-VAE's encoding on the card (bf16) against the CPU's (f32):
+# a code may flip where two codes are near, so this share at least is equal
+IMPORT_CODES_EQUAL = 0.9
+REFERENCE_MODELS = ("mcgan", "cgan", "mcvae", "cvae", "vqvae", "mcpixelcnn", "cpixelcnn",
+                    "mcglow", "cglow", "classifier")
+
+
+def run_reference_import(name_limit: str):
+    """A reference-keyed ``state_dict`` (the reference implementation's key
+    paths, seeded random tensors shaped by the port's layers;
+    ``tests/reference_state_dicts.py``) for each of the ten models at the
+    CIFAR10 width, converted by ``io.torch_import.load_reference`` and
+    loaded by the model on the card and on the CPU; one pass of 16 on each
+    (the GANs and VAEs: a ``generate`` chunk from fixed z; the Glows: the
+    eval forward's z; the PixelCNNs: logits of random codes; the VQ-VAE:
+    the decoded codes of the CPU's encoding, and the share of codes the
+    card's encoding finds equal, at least ``IMPORT_CODES_EQUAL``; the
+    classifier: logits): finite, the card's within ``SLICE_TOL * max|cpu|``
+    of the CPU's (bf16 operands against f32; the classifier f32 both)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from mcgm_tpu_torch.io.torch_import import load_reference, reference_dims
+    from reference_state_dicts import reference_state_dict
+
+    rec, bad = {}, []
+    g = torch.Generator().manual_seed(41)
+    n = 16
+    label = torch.arange(n) % 10
+    img = torch.rand((n, 32, 32, 3), generator=g) * 2 - 1
+    for name in REFERENCE_MODELS:
+        cfg = _single_cfg(name)
+        cpu = build_model(cfg, "cpu")
+        section = next(k for k in ("vqvae", "pixelcnn", "glow", "gan", "vae", "classifier")
+                       if k in name)
+        t0 = time.perf_counter()
+        sd = reference_state_dict(name, cpu, cfg[section], seed=len(name))
+        state = load_reference(name, sd, **reference_dims(cfg))
+        convert_s = time.perf_counter() - t0
+        cpu.load_state_dict(state, strict=True)
+        card = build_model(cfg, DEV)
+        card.load_state_dict(state, strict=True)
+        if section in ("gan", "vae"):
+            z = torch.randn((n, cfg[section]["latent_size"]), generator=g)
+
+            def fwd(m, dev):
+                return m.generate(label.to(dev), z.to(dev))
+        elif section == "glow":
+            noise = torch.rand((n, 32, 32, 3), generator=g)
+
+            def fwd(m, dev):
+                out = m({"img": img.to(dev), "label": label.to(dev)}, noise=noise.to(dev))
+                return torch.cat([t.reshape(n, -1) for t in out["z"]], 1)
+        elif section == "pixelcnn":
+            codes = torch.randint(0, cfg["pixelcnn"]["num_embedding"], (n, 8, 8), generator=g)
+
+            def fwd(m, dev):
+                return m({"img": codes.to(dev), "label": label.to(dev)})["logits"]
+        elif section == "classifier":
+            def fwd(m, dev):
+                return m({"img": img.to(dev), "label": label.to(dev)})["label"]
+        with torch.no_grad():
+            if name == "vqvae":
+                cpu_codes = cpu.encode(img)[2]
+                want = cpu.decode_code(cpu_codes).float()
+                got_codes = card.encode(img.to(DEV))[2].cpu()
+                got = card.decode_code(cpu_codes.to(DEV)).float().cpu()
+                code_share = float((got_codes == cpu_codes).float().mean())
+            else:
+                want = fwd(cpu, "cpu").float()
+                got = fwd(card, DEV).float().cpu()
+        err, top = (got - want).abs().max().item(), want.abs().max().item()
+        r = {"parameters": sum(p.numel() for p in cpu.parameters()), "keys": len(sd),
+             "convert_seconds": convert_s, "shape": list(want.shape),
+             "max_abs_err": err, "max_abs_cpu": top, "finite": bool(torch.isfinite(got).all())}
+        if name == "vqvae":
+            r["codes_equal_share"] = code_share
+        ok = r["finite"] and bool(torch.isfinite(want).all()) and err <= SLICE_TOL * top
+        if name == "vqvae":
+            ok = ok and code_share >= IMPORT_CODES_EQUAL
+        if not ok:
+            bad.append(f"{name}: {r}")
+        rec[name] = r
+        del cpu, card
+    log("reference import:", json.dumps({"card": name_limit, **rec}))
+    if bad:
+        raise SystemExit("reference import failed: " + "; ".join(bad))
+    return rec
+
+
+PREEMPT_STEPS, PREEMPT_SAVE_EVERY, PREEMPT_AT = 6, 2, 3
+
+
+def run_preempt(name_limit: str, data_dir: str, out_dir: str):
+    """The classifier trained through ``cli.train`` on the CIFAR10-shaped
+    files for one epoch of ``PREEMPT_STEPS`` steps with ``save_every_steps
+    = PREEMPT_SAVE_EVERY``: once uninterrupted, once sending itself SIGTERM
+    just before step ``PREEMPT_AT`` (it stops after that step with a step
+    checkpoint), then ``resume_mode=1`` to the epoch's end. cuDNN runs its
+    deterministic algorithms here, so the resumed run's state (parameters,
+    Adam's moments, scheduler, logger) must equal the uninterrupted one's
+    bit for bit."""
+    import signal
+
+    from mcgm_tpu_torch.train import loop as ploop
+
+    base = ["--data_name", "CIFAR10", "--data_dir", data_dir, "--model_name", "classifier",
+            "--control_name", "None", "--device", str(DEV), "--num_epochs", "1"]
+    kw = dict(limit_train_batches=PREEMPT_STEPS, limit_eval_batches=2,
+              save_every_steps=PREEMPT_SAVE_EVERY)
+    det, bench = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    real_setup = ploop.Experiment.setup
+    calls = [0]
+
+    def setup_with_sigterm(exp):
+        real_setup(exp)
+        step = exp.train_step
+
+        def wrapped(ts, batch):
+            calls[0] += 1
+            if calls[0] == PREEMPT_AT:
+                if signal.getsignal(signal.SIGTERM) in (signal.SIG_DFL, None):
+                    raise SystemExit("preempt: the trainer's SIGTERM handler is not installed")
+                os.kill(os.getpid(), signal.SIGTERM)
+            return step(ts, batch)
+
+        exp.train_step = wrapped
+
+    try:
+        t0 = time.perf_counter()
+        (full,) = cli_train.main(base + ["--output_dir", os.path.join(out_dir, "full")], **kw)
+        full_s = time.perf_counter() - t0
+        ploop.Experiment.setup = setup_with_sigterm
+        try:
+            t0 = time.perf_counter()
+            (first,) = cli_train.main(base + ["--output_dir", os.path.join(out_dir, "split")],
+                                      **kw)
+            stop_s = time.perf_counter() - t0
+        finally:
+            ploop.Experiment.setup = real_setup
+        t0 = time.perf_counter()
+        (resumed,) = cli_train.main(base + ["--output_dir", os.path.join(out_dir, "split"),
+                                            "--resume_mode", "1"], **kw)
+        resume_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, bench
+    mismatch = _state_mismatch(to_numpy(full.state_dict()), to_numpy(resumed.state_dict()))
+    rec = {"card": name_limit, "steps_before_stop": first.epoch_stats[0]["train_steps"],
+           "resumed_at_step": (resumed.resumed or {}).get("mid_epoch_step"),
+           "steps_after_resume": resumed.epoch_stats[0]["train_steps"],
+           "handler_restored": signal.getsignal(signal.SIGTERM) is signal.SIG_DFL,
+           "state_bit_equal": not mismatch, "mismatch": mismatch[:8],
+           "seconds": {"uninterrupted": full_s, "stopped": stop_s, "resumed": resume_s}}
+    log("preempt:", json.dumps(rec))
+    if not (rec["steps_before_stop"] == PREEMPT_AT and rec["resumed_at_step"] == PREEMPT_AT
+            and rec["steps_after_resume"] == PREEMPT_STEPS - PREEMPT_AT
+            and rec["state_bit_equal"] and rec["handler_restored"]):
+        raise SystemExit(f"preempt failed: {rec}")
+    return rec
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2688,6 +3251,7 @@ def main() -> int:
     serve_launches, _, g_then_d = run_slice(name_limit)
     torch.backends.cudnn.allow_tf32 = True  # torch's default, as the bench script runs
     train_launches, _, profile_train = run_train(name_limit)
+    fused_launches, _ = run_gan_fused(name_limit)
     work = os.path.join(str(build.BUILD_DIR), "trainer_smoke")
     shutil.rmtree(work, ignore_errors=True)
     try:
@@ -2701,6 +3265,10 @@ def main() -> int:
                                                   os.path.join(work, "vqvae"))
         glow_launches, _, profile_glow = run_glow(name_limit, data_dir,
                                                   os.path.join(work, "glow"))
+        reversible_launches, _ = run_glow_reversible(name_limit)
+        remat_launches, _ = run_remat_single(name_limit)
+        run_preempt(name_limit, data_dir, os.path.join(work, "preempt"))
+        run_reference_import(name_limit)
         # the trainer's MCGAN and InceptionV3 weights, before the folder goes
         run_scores_cifar10(name_limit, data_dir, os.path.join(work, "output"))
         shutil.rmtree(work, ignore_errors=True)
@@ -2750,6 +3318,9 @@ def main() -> int:
                              "real_mcgan": real_launches["mcgan"],
                              "real_cgan": real_launches["cgan"],
                              "workflows": wf_launches["first_dblock"],
+                             "train_cifar10_fuse_g_pass": fused_launches["fuse_g_pass"],
+                             "train_cifar10_remat": fused_launches["remat"],
+                             "train_cifar10_fuse_g_pass_remat": fused_launches["both"],
                              **{f"vae_{m}": c["first_dblock"] for m, c in vae_launches.items()},
                              **{f"real_{m}": c["first_dblock"]
                                 for m, c in real_vae_launches.items()}},
@@ -2778,6 +3349,7 @@ def main() -> int:
             **({k: rec[k] for k in ("ms_by_kernel", "span_ms", "bound_f32_ms", "variant",
                                     "rows_rescored", "rows_paired") if k in rec}),
             "launches_by_path": {"vqvae_step": vqvae_launches["step"][kname],
+                                 "vqvae_step_remat": remat_launches["vqvae"][kname],
                                  "vqvae_eval_batch": vqvae_launches["eval"][kname],
                                  "vqvae_trainer": vqvae_launches["trainer"][kname],
                                  "real_vqvae": real_vae_launches["vqvae"][kname],
@@ -2818,7 +3390,8 @@ def main() -> int:
                for path in ("step", "eval_batch", "generate_sweeps", "trainer")},
             **{f"real_{m}_{path}": c[path]["mc_gated_matmul"]
                for m, c in real_glow_launches.items() for path in ("trainer", "workflows")},
-            "scores_real": scores_launches["mc_gated_matmul"]},
+            "scores_real": scores_launches["mc_gated_matmul"],
+            **{f"glow_{m}_step_reversible": n for m, n in reversible_launches.items()}},
         "other_shapes": [{k: r[k] for k in vq_shapes + ("variant", "roofline_share")}
                          for r in mc_others + mc_glow]})
     log(f"wall: {time.perf_counter() - t_start:.1f} s for the whole script")

@@ -27,7 +27,8 @@ def build_model(cfg: dict, device=None) -> nn.Module:
     ``cfg["classes_size"]`` must be set (but for vqvae); ``cfg["compute_dtype"]``
     ('auto' by default) picks the activation dtype of the GANs, the VAEs,
     the VQ-VAE, the PixelCNNs and Glow's convs. The classifier runs f32.
-    A Glow with ``reversible_flows`` or a pipeline axis is refused.
+    A Glow takes ``reversible_flows`` (the ``glow`` section's or the
+    config's own); a pipeline axis is refused.
     """
     name = cfg["model_name"]
     if name not in PORTED:

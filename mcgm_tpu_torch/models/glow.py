@@ -34,10 +34,15 @@ Activations are NCHW; the public functions take and return the JAX layout
 (bf16 on the card, f32 on the CPU), as the JAX ``Conv`` casts its operands;
 the flows' carry, ActNorm, the invconv, the logdets and the likelihood are
 f32. ``remat_flows`` checkpoints each flow (``torch.utils.checkpoint``): the
-same math, the forward recomputed in the backward pass. ``scan_flows`` and
-``scan_chunk`` only say how the flows' variables are packed in the JAX
-layout (``io.jax_import``); ``scan_unroll`` is an XLA loop setting with no
-counterpart here. ``reversible_flows`` and a pipeline axis are refused.
+same math, the forward recomputed in the backward pass. ``reversible_flows``
+(the JAX package's rule: ``scan_flows`` with ``scan_chunk=1``, no pipeline
+axis) runs each block's flows in training through ``ops.reversible``, whose
+backward rebuilds every flow's input from its output and runs each coupling
+net once more (48 more launches a step, as with ``remat_flows``, which it
+takes the place of). ``scan_flows`` and ``scan_chunk`` only say how the
+flows' variables are packed in the JAX layout (``io.jax_import``);
+``scan_unroll`` is an XLA loop setting with no counterpart here. A pipeline
+axis is refused.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels.mc_gate import mc_gated_matmul, mc_gated_matmul_reference
 from ..ops.controller import Seeds, one_hot
 from ..ops.layers import Conv
+from ..ops.reversible import reversible_flows
 
 
 def gaussian_log_p(x, mean, log_sd):
@@ -317,17 +323,21 @@ class Block(nn.Module):
         return h
 
     def forward(self, x, indicator, dtype, ddi: bool = False, plain: bool = False,
-                remat: bool = False):
+                remat: bool = False, reversible: bool = False):
         b = x.shape[0]
         out = squeeze2(x)
         logdet = torch.zeros((b,), device=x.device)
-        for flow in self.flows():
-            if remat and not ddi and torch.is_grad_enabled():
-                out, det = checkpoint(flow, out, indicator, dtype, False, plain,
-                                      use_reentrant=False)
-            else:
-                out, det = flow(out, indicator, dtype, ddi, plain)
-            logdet = logdet + det
+        grad = not ddi and torch.is_grad_enabled()
+        if reversible and grad:
+            out, logdet = reversible_flows(self.flows(), out, indicator, dtype, plain)
+        else:
+            for flow in self.flows():
+                if remat and grad:
+                    out, det = checkpoint(flow, out, indicator, dtype, False, plain,
+                                          use_reentrant=False)
+                else:
+                    out, det = flow(out, indicator, dtype, ddi, plain)
+                logdet = logdet + det
         if self.split:
             out, z_new = out.chunk(2, 1)
             mean, log_sd = self.prior(out, dtype).chunk(2, 1)
@@ -365,8 +375,13 @@ class _GlowBase(nn.Module):
                compute_dtype, seed, scan_flows, scan_chunk, remat_flows, scan_unroll,
                reversible_flows, pipe_axis):
         if reversible_flows:
-            raise NotImplementedError("reversible_flows=True: the reversible backward "
-                                      "is not ported (ROADMAP Queue A item 9)")
+            if not scan_flows or scan_chunk != 1:
+                raise ValueError("reversible_flows requires scan_flows=True with "
+                                 "scan_chunk=1 (it operates on the flat [K, ...] flow "
+                                 "packing)")
+            if pipe_axis is not None:
+                raise ValueError("reversible_flows and pipe_axis are mutually exclusive "
+                                 "(the pipeline is its own scan executor)")
         if pipe_axis is not None:
             raise NotImplementedError("a pipeline axis over the flows is not ported "
                                       "(ROADMAP Queue A item 12)")
@@ -379,6 +394,7 @@ class _GlowBase(nn.Module):
         self.num_mode, self.compute_dtype = num_mode, compute_dtype
         self.scan_flows, self.scan_chunk = bool(scan_flows), int(scan_chunk)
         self.remat_flows, self.plain = bool(remat_flows), False
+        self.reversible_flows = bool(reversible_flows)
         c = data_shape[-1]
         mc = (num_mode, rate) if rate is not None else (None, None)
         for i in range(L):
@@ -429,10 +445,10 @@ class _GlowBase(nn.Module):
         z_list = []
         log_p_sum = torch.zeros((x.shape[0],), device=x.device)
         logdet = torch.zeros((), device=x.device)
-        remat = self.remat_flows and train
+        remat, reversible = self.remat_flows and train, self.reversible_flows and train
         for block in self.blocks():
             x, det, log_p, z_new = block(x, indicator, self.compute_dtype, ddi, self.plain,
-                                         remat)
+                                         remat, reversible)
             z_list.append(_nhwc(z_new))
             logdet = logdet + det
             log_p_sum = log_p_sum + log_p

@@ -15,15 +15,35 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def make_codebook_torch_compat(seed: int, num_mode: int, features: int,
+                               controller_rate: float = 0.5) -> np.ndarray:
+    """The reference implementation's codebook: Bernoulli(rate) batches of
+    ``[num_mode, features]`` from torch's generator seeded with ``seed``,
+    deduplicated through a set of float tuples, the first ``num_mode`` rows
+    in the set's order (the JAX package's ``make_codebook_torch_compat``; a
+    generator of its own, so the global one is left as it was)."""
+    if controller_rate == 1:
+        return np.ones((num_mode, features), np.float32)
+    g = torch.Generator().manual_seed(int(seed))
+    probs = torch.tensor(float(controller_rate)).expand(num_mode, features)
+    codebook: set = set()
+    while len(codebook) < num_mode:
+        codebook.update(tuple(c) for c in torch.bernoulli(probs, generator=g).tolist())
+    return np.asarray(list(codebook)[:num_mode], np.float32)
+
+
 def make_codebook(seed: int, num_mode: int, features: int,
-                  controller_rate: float = 0.5) -> np.ndarray:
+                  controller_rate: float = 0.5, torch_compat: bool = False) -> np.ndarray:
     """``num_mode`` unique binary masks of length ``features`` as float32.
 
     The same numpy ``default_rng`` draw and insertion-ordered dedupe as the
-    JAX package's ``make_codebook``, so an int seed gives the same rows.
+    JAX package's ``make_codebook``, so an int seed gives the same rows;
+    ``torch_compat``: the reference's rows (:func:`make_codebook_torch_compat`).
     """
     if controller_rate == 1:
         return np.ones((num_mode, features), np.float32)
+    if torch_compat:
+        return make_codebook_torch_compat(seed, num_mode, features, controller_rate)
     if features < 24 and 2 ** features < num_mode:
         raise ValueError(
             f"cannot draw {num_mode} unique masks from {{0,1}}^{features}")

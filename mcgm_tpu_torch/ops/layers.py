@@ -17,6 +17,7 @@ bias 0.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -66,7 +67,15 @@ class BatchNorm(nn.Module):
     Training normalises by the batch's biased statistics and moves the
     running ones by ``(1 - BN_MOMENTUM)`` (torch momentum 0.1), as flax does;
     eval uses the running ones. Statistics and math are f32.
+
+    ``slices`` (set through :func:`batch_stat_slices`): the batch is that
+    many equal slices, each normalised by its own statistics, and the
+    running ones move once per slice in order, as that many calls in a row
+    would move them (the JAX package's vmapped G pass and its
+    ``_chain_batch_stats``).
     """
+
+    moves_buffers = True  # the running statistics, in training
 
     def __init__(self, features: int, generator=None):
         super().__init__()
@@ -74,9 +83,12 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.slices = 1
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         xf = x.float()
+        if train and self.slices > 1:
+            return self._sliced(xf).to(x.dtype)
         if train:
             dims = [d for d in range(xf.ndim) if d != 1]
             mean = xf.mean(dims)
@@ -90,6 +102,36 @@ class BatchNorm(nn.Module):
         scale = self.weight * torch.rsqrt(var + BN_EPS)
         y = (xf - mean.reshape(shape)) * scale.reshape(shape) + self.bias.reshape(shape)
         return y.to(x.dtype)
+
+    def _sliced(self, xf: torch.Tensor) -> torch.Tensor:
+        k = self.slices
+        xs = xf.reshape(k, xf.shape[0] // k, *xf.shape[1:])
+        dims = [d for d in range(xs.ndim) if d not in (0, 2)]
+        mean = xs.mean(dims)
+        var = xs.var(dims, unbiased=False)
+        with torch.no_grad():
+            for i in range(k):
+                self.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean[i])
+                self.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var[i])
+        shape = (k, 1, -1) + (1,) * (xf.ndim - 2)
+        scale = self.weight * torch.rsqrt(var + BN_EPS)
+        y = ((xs - mean.reshape(shape)) * scale.reshape(shape)
+             + self.bias.reshape((1, 1, -1) + (1,) * (xf.ndim - 2)))
+        return y.reshape(xf.shape)
+
+
+@contextlib.contextmanager
+def batch_stat_slices(module: nn.Module, k: int):
+    """While open, every ``BatchNorm`` in ``module`` takes its batch as
+    ``k`` slices with their own statistics (see ``BatchNorm``)."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.slices = k
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.slices = 1
 
 
 def _bias(b, x):
@@ -223,6 +265,8 @@ def spectral_normalize(weight: torch.Tensor, u: torch.Tensor,
 
 class _SpectralNorm(nn.Module):
     """Owns ``weight``, ``bias`` and the power-iteration vector ``u``."""
+
+    moves_buffers = True  # ``u``, in training
 
     def _init_sn(self, weight: torch.Tensor, bias, generator):
         self.weight = nn.Parameter(weight)

@@ -10,7 +10,8 @@ The nearest-code search and the EMA update are the hand-written kernels of
 ``kernels/vq.py`` on the card (their plain versions on the CPU, or on the
 card with ``plain`` set). ``quantize`` and the commitment ``diff`` come from
 the codebook as it was before the update, which is applied after them, as
-in the JAX package.
+in the JAX package. Under the train steps' ``remat`` the recompute of the
+forward skips the update (``ops.remat``), so the EMA moves once a step.
 """
 
 from __future__ import annotations
@@ -20,9 +21,12 @@ from torch import nn
 
 from ..evals.metrics import weighted_mean
 from ..kernels.vq import vq_assign, vq_assign_reference, vq_ema, vq_ema_reference
+from .remat import recomputing
 
 
 class VectorQuantizerEMA(nn.Module):
+    moves_buffers = True  # the EMA, in training
+
     def __init__(self, embedding_size: int, num_embedding: int, decay: float = 0.99,
                  eps: float = 1e-5, generator=None):
         super().__init__()
@@ -43,7 +47,7 @@ class VectorQuantizerEMA(nn.Module):
         with torch.no_grad():
             code, quantize = (vq_assign_reference if self.plain else vq_assign)(
                 flat, self.embedding)
-            if train:
+            if train and not recomputing():  # a remat recompute moves nothing
                 wf = None
                 if w is not None:  # one weight per position
                     wf = (w.float().reshape((-1,) + (1,) * (x.dim() - 2))

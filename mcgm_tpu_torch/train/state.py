@@ -33,8 +33,15 @@ ride in :class:`GANTrainState` and the factory takes only the step's options.
 z comes from the state's ``torch.Generator`` unless the caller passes the
 ``d_iter + 1`` latents: ``jax.random``'s streams cannot be reproduced here,
 so a parity test hands both packages the same z. The JAX step's ``unroll``
-and ``remat`` are XLA compile knobs (eager PyTorch has no counterpart to
-``unroll``); ``remat`` and ``fuse_g_pass`` are not ported yet.
+is an XLA compile knob with no counterpart in eager PyTorch.
+
+``remat`` (both factories) recomputes each loss's forward in its backward
+(``ops.remat``: the buffers the forward moved and the noise generators are
+put back for the recompute, so the results equal the step without it). ``fuse_g_pass`` draws the ``d_iter``
+fakes from one ``generate`` at batch ``d_iter * B`` with each B-slice's own
+BatchNorm statistics and the running ones moved slice by slice
+(``ops.layers.batch_stat_slices``), the same z and the same state as the
+unfused step's ``d_iter`` calls; the D updates then take those fakes.
 """
 
 from __future__ import annotations
@@ -44,6 +51,9 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.layers import batch_stat_slices
+from ..ops.remat import remat as _remat
 
 LOSS_TYPES = ("Hinge", "BCE")
 
@@ -60,7 +70,7 @@ class TrainState:
     rng: torch.Generator | None = None
 
 
-def make_train_step(skip_nonfinite: bool = False):
+def make_train_step(skip_nonfinite: bool = False, remat: bool = False):
     """``step(ts, batch, **inputs) -> {"loss", "output"[, "skipped"]}``: one
     update of ``ts.model`` on ``batch``, in place, whose ``model(batch,
     train=True, **inputs)`` returns a dict with ``loss``. ``ts.rng``, if
@@ -71,14 +81,21 @@ def make_train_step(skip_nonfinite: bool = False):
     whole update is dropped (parameters, optimizer state, the buffers the
     forward moved) and the result has ``skipped`` = 1.0 (else 0.0); the step
     count still advances. Deciding it reads the norm on the host, one wait
-    for the device per step; without the option the step never waits."""
+    for the device per step; without the option the step never waits.
+
+    ``remat``: the forward is recomputed in the backward (``ops.remat``),
+    with the same gradients, buffers and noise."""
 
     def step(ts: TrainState, batch: dict, **inputs) -> dict:
         model = ts.model
         saved = ([b.clone() for b in model.buffers()] if skip_nonfinite else None)
         if ts.rng is not None:
             inputs.setdefault("rng", ts.rng)
-        out = model(batch, train=True, **inputs)
+        if remat:
+            out = _remat(model, batch, train=True, modules=(model,),
+                         generators=(inputs.get("rng"),), **inputs)
+        else:
+            out = model(batch, train=True, **inputs)
         ts.opt.zero_grad(set_to_none=True)
         out["loss"].backward()
         aux = {"loss": out["loss"].detach(), "output": out}
@@ -149,15 +166,37 @@ def _requires_grad(module: nn.Module, flag: bool) -> None:
         p.requires_grad_(flag)
 
 
-def make_gan_train_step(d_iter: int = 5, loss_type: str = "Hinge", fuse_d_pass: bool = True):
+def make_gan_train_step(d_iter: int = 5, loss_type: str = "Hinge", fuse_d_pass: bool = True,
+                        remat: bool = False, fuse_g_pass: bool = False):
     """``step(ts, batch, z=None) -> metrics``: one GAN step on
     ``batch = {"img": [B,H,W,C] in [-1, 1], "label": [B]}``, in place on
     ``ts``. ``z``, if given, is ``d_iter + 1`` latents ``[B, latent]`` (one per
     D update, then G's). Returns ``{"Loss_D": mean of the d_iter D losses,
     "Loss_G", "Loss"}`` as f32 tensors on the device (reading them waits for
-    the card)."""
+    the card). ``remat``: each D loss and the G loss recomputed in their
+    backward; ``fuse_g_pass``: the D updates' fakes from one ``generate``
+    at batch ``d_iter * B`` (see the module's docstring)."""
     if loss_type not in LOSS_TYPES:
         raise ValueError(f"loss_type must be one of {LOSS_TYPES}, got {loss_type!r}")
+
+    def d_pass(model, img, fake, label):
+        B = img.shape[0]
+        if fuse_d_pass:
+            out = model.discriminate(torch.cat([img.to(fake.dtype), fake]),
+                                     torch.cat([label, label]), train=True)
+            d_real, d_fake = out[:B], out[B:]
+        else:
+            d_real = model.discriminate(img, label, train=True)
+            d_fake = model.discriminate(fake, label, train=True)
+        return d_loss(d_real, d_fake, loss_type)
+
+    def g_pass(model, z, label):
+        fake = model.generate(label, z, train=True)
+        return g_loss(model.discriminate(fake, label, train=True), loss_type)
+
+    def run(fn, model, *args, moving=None):
+        return (_remat(fn, model, *args, modules=(moving or model,)) if remat
+                else fn(model, *args))
 
     def step(ts: GANTrainState, batch: dict, z=None) -> dict:
         model = ts.model
@@ -169,27 +208,28 @@ def make_gan_train_step(d_iter: int = 5, loss_type: str = "Hinge", fuse_d_pass: 
         if len(z) != d_iter + 1:
             raise ValueError(f"step takes d_iter + 1 = {d_iter + 1} latents, got {len(z)}")
 
+        fakes = None
+        if fuse_g_pass:
+            with torch.no_grad(), batch_stat_slices(model.generator, d_iter):
+                fakes = model.generate(label.repeat(d_iter), torch.cat(list(z[:d_iter])),
+                                       train=True).chunk(d_iter)
         d_losses = []
         for i in range(d_iter):
-            with torch.no_grad():
-                fake = model.generate(label, z[i], train=True)
-            if fuse_d_pass:
-                out = model.discriminate(torch.cat([img.to(fake.dtype), fake]),
-                                         torch.cat([label, label]), train=True)
-                d_real, d_fake = out[:B], out[B:]
+            if fakes is None:
+                with torch.no_grad():
+                    fake = model.generate(label, z[i], train=True)
             else:
-                d_real = model.discriminate(img, label, train=True)
-                d_fake = model.discriminate(fake, label, train=True)
-            loss = d_loss(d_real, d_fake, loss_type)
+                fake = fakes[i]
+            loss = run(d_pass, model, img, fake, label, moving=model.discriminator)
             ts.d_opt.zero_grad(set_to_none=True)
             loss.backward()
             ts.d_opt.step()
             d_losses.append(loss.detach())
+        del fakes
 
         _requires_grad(model.discriminator, False)
         try:
-            fake = model.generate(label, z[d_iter], train=True)
-            loss_g = g_loss(model.discriminate(fake, label, train=True), loss_type)
+            loss_g = run(g_pass, model, z[d_iter], label)
             ts.g_opt.zero_grad(set_to_none=True)
             loss_g.backward()
             ts.g_opt.step()

@@ -176,6 +176,37 @@ def test_train_step_kernel_path_matches_plain(dev):
         assert err <= TRAIN_TOL * w.float().abs().max().item(), (n, err)
 
 
+@pytest.mark.parametrize("flags", [dict(fuse_g_pass=True), dict(remat=True),
+                                   dict(fuse_g_pass=True, remat=True)])
+def test_train_step_fused_g_pass_and_remat_match_the_plain_step(dev, flags):
+    """The step with ``fuse_g_pass`` (one G pass at ``D_ITER * B``) and / or
+    ``remat`` against the plain step from the same state and z, both through
+    the kernel: losses and the first D update's gradients within
+    ``TRAIN_TOL * max|plain|``; BatchNorm statistics and ``u`` within it
+    too; ``first_dblock`` once per D pass, and again in each recompute."""
+    (ts_f, batch), (ts_p, _) = _train_state(dev), _train_state(dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    z = [torch.randn((8, SMALL_GAN["latent_size"]), generator=g, device=dev)
+         for _ in range(D_ITER + 1)]
+    seen_f, seen_p = _d_grads(ts_f), _d_grads(ts_p)
+    before = fd.first_dblock.launches
+    got = make_gan_train_step(D_ITER, **flags)(ts_f, batch, z=z)
+    torch.cuda.synchronize()
+    launches = fd.first_dblock.launches - before
+    want = make_gan_train_step(D_ITER)(ts_p, batch, z=z)
+    assert launches == (D_ITER + 1) * (2 if flags.get("remat") else 1)
+    scale = max(abs(w.item()) for w in want.values())
+    for k in want:
+        assert abs(got[k].item() - want[k].item()) <= TRAIN_TOL * scale, k
+    for n, w in seen_p[0].items():
+        err = (seen_f[0][n].float() - w.float()).abs().max().item()
+        assert err <= TRAIN_TOL * w.float().abs().max().item(), (n, err)
+    sf = ts_f.model.state_dict()
+    for k, b in ts_p.model.state_dict().items():
+        if k.endswith(("running_mean", "running_var", ".u")):
+            assert (sf[k] - b).abs().max() <= TRAIN_TOL * b.abs().max(), k
+
+
 def test_cgan_train_step_matches_f32(dev):
     """A small CIFAR10 CGAN step in bf16 on the card against the same step
     in f32 (its first block, 3 + 8 channels, runs plain cuDNN: no kernel
@@ -516,10 +547,12 @@ def test_mc_gated_matmul_affine_gradient_matches_plain(dev, gate):
         assert (a - b).abs().max() <= (TOL if i < 2 else 1e-4) * b.abs().max(), i
 
 
-def test_glow_step_kernel_path_matches_plain(dev):
-    """One full-width CIFAR10 MCGlow step (B=128, bf16 convs, remat_flows)
-    from one state, through the kernel (48 launches in the forward, 48 in
-    the recompute) and through its plain version: the loss within ``1e-2 *
+@pytest.mark.parametrize("backward", ["remat_flows", "reversible_flows"])
+def test_glow_step_kernel_path_matches_plain(dev, backward):
+    """One full-width CIFAR10 MCGlow step (B=128, bf16 convs, ``remat_flows``
+    or the reversible backward) from one state, through the kernel (48
+    launches in the forward, 48 in the recompute or the reversible
+    backward's net runs) and through its plain version: the loss within ``1e-2 *
     |plain|``, the gradients of the coupling nets' ActNorm after the 1x1
     (through the widened backward) within ``5e-2 * max|plain|``, and every
     parameter after the step within ``5e-2 * max|plain|`` of its tensor plus
@@ -536,6 +569,7 @@ def test_glow_step_kernel_path_matches_plain(dev):
     cfg = loop.apply_family_overrides(process_control({"data_name": "CIFAR10",
                                                        "model_name": "mcglow"}))
     cfg["classes_size"] = 10
+    cfg["glow"] = dict(cfg["glow"], reversible_flows=backward == "reversible_flows")
     g = torch.Generator(device=dev).manual_seed(0)
     batch = {"img": torch.rand((128, 32, 32, 3), generator=g, device=dev) * 2 - 1,
              "label": torch.arange(128, device=dev) % 10}

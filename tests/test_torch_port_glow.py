@@ -192,15 +192,21 @@ def _jax_run(name, v):
     flow = jglow.Flow(12, HID, True, True, M if mc else None, 0.5 if mc else None)
     netv = {c: t["coupling"]["net"] for c, t in f0.items() if "coupling" in t}
 
-    def steps(v, d):  # DDI and the steps: MCGlow's (CGlow runs the same code)
+    jrev = _jax(name, reversible_flows=True)
+
+    def steps(v, d):  # DDI, the steps and the reversible gradient: MCGlow's
         params, state = jstate.split_variables(v)
+        batch = {"img": d["img"], "label": d["label"]}
+        rev = jax.grad(lambda p: jrev.apply({**state, "params": p}, batch, train=True,
+                                            rngs={"noise": jax.random.PRNGKey(3)})["loss"])(params)
         _, mut = jm.apply(v, {"img": d["big"], "label": d["big_label"]}, train=True,
                           ddi=True, rngs={"noise": jax.random.PRNGKey(1)}, mutable=["params"])
         ts = jstate.TrainState(params=params, state=state, opt_state=opt.init(params),
                                rng=jax.random.PRNGKey(2))
         ts, aux = jax.lax.scan(lambda t, _: step(t, {"img": d["img"], "label": d["label"]}),
                                ts, None, length=2)
-        return {"ddi": mut["params"], "steps": (aux["loss"], ts.params, ts.opt_state[1])}
+        return {"ddi": mut["params"], "steps": (aux["loss"], ts.params, ts.opt_state[1]),
+                "rev_grad": rev}
 
     def run(v, d):
         ind = jax.nn.one_hot(d["label"], M)
@@ -483,6 +489,100 @@ def test_two_steps_match_jax(parity):
         assert diff[clear].max() <= LR / 100, (k, diff[clear].max() / LR)
 
 
+def test_reversible_gradients_match_jax(parity):
+    """MCGlow's train loss through the reversible backward (every flow's
+    input rebuilt from its output; the gated 1x1's ``alpha`` / ``beta``
+    through ``mc_gated_matmul``'s own backward) against ``jax.grad``
+    through the JAX Glow with ``reversible_flows=True``: every gradient at
+    f32 tolerance, ``rtol=1e-4``, ``atol=1e-4 * max|grad|``."""
+    s = parity["mcglow"]
+    port = _port("mcglow", reversible_flows=True)
+    port.load_state_dict(s["port"].state_dict())
+    d = s["d"]
+    out = port({"img": _t(d["img"]), "label": _t(d["label"])}, train=True,
+               noise=_t(d["noise"]))
+    out["loss"].backward()
+    want = from_jax_variables({"params": s["jax"]["rev_grad"]})
+    names = [n for n, _ in port.named_parameters()]
+    assert set(names) == set(want)
+    for k, p in port.named_parameters():
+        w = want[k].numpy()
+        if not np.abs(w).any():  # the last prior's kernel: a conv of zeros
+            assert not p.grad.abs().any(), k
+            continue
+        np.testing.assert_allclose(p.grad.numpy(), w, rtol=1e-4, atol=1e-4 * np.abs(w).max(),
+                                   err_msg=k)
+
+
+def _nonzero_glow(name, seed, **kw):
+    """A tiny Glow whose zero convs hold small random weights, so that every
+    coupling net reaches the loss."""
+    model = pglow.MCGlow(SHAPE, 8, K, L, num_mode=M, seed=seed, **kw) if name == "mcglow" \
+        else pglow.CGlow(SHAPE, 8, K, L, num_mode=M, seed=seed, **kw)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if "ZeroConv2d" in n or "prior" in n or "embedding" in n:
+                p.copy_(0.05 * torch.randn(p.shape, generator=g))
+    return model
+
+
+@pytest.mark.parametrize("affine,conv_lu", [(True, True), (True, False), (False, True)])
+@pytest.mark.parametrize("name", list(MODELS))
+def test_reversible_equals_remat_flows(name, affine, conv_lu):
+    """Port against port: the reversible backward gives the ``remat_flows``
+    step's loss and gradients (f32, ``rtol=1e-4``, ``atol=1e-5 * max``), for
+    the affine and additive couplings and both invconvs; ``RECONSTRUCTED``
+    holds each flow's rebuilt input, equal to the one the forward saw."""
+    from mcgm_tpu_torch.ops import reversible as prev
+
+    rng = np.random.default_rng(8)
+    batch = {"img": _t(rng.uniform(-1, 1, (B, *SHAPE)).astype(np.float32)),
+             "label": _t((np.arange(B) % M).astype(np.int64))}
+    noise = _t(rng.uniform(0, 1, (B, *SHAPE)).astype(np.float32))
+    res = []
+    for rev in (False, True):
+        model = _nonzero_glow(name, 5, affine=affine, conv_lu=conv_lu, reversible_flows=rev,
+                              remat_flows=not rev)
+        seen = []
+        if rev:
+            hooks = [f.register_forward_pre_hook(lambda m, a: seen.append(a[0].detach().clone()))
+                     for f in model.block_0.flows()]
+            prev.RECONSTRUCTED = []
+        try:
+            out = model(batch, train=True, noise=noise)
+            out["loss"].backward()
+            rebuilt = prev.RECONSTRUCTED
+        finally:
+            prev.RECONSTRUCTED = None
+        if rev:
+            for h in hooks:
+                h.remove()
+            block0 = [x for k, x in rebuilt[-K:]]  # block 0 runs its backward last
+            for x_in, x_re in zip(seen[:K], block0[::-1]):
+                assert (x_in - x_re).abs().max() <= 1e-4 * x_in.abs().max()
+        res.append((out["loss"].detach(), {n: p.grad.clone() for n, p in model.named_parameters()}))
+    (la, ga), (lb, gb) = res
+    np.testing.assert_allclose(float(lb), float(la), rtol=1e-6)
+    assert set(ga) == set(gb)
+    for k, w in ga.items():
+        _close(gb[k], w.numpy(), rtol=1e-4, atol=1e-5, msg=k)
+
+
+def test_reversible_flows_keeps_the_jax_errors():
+    """``reversible_flows`` needs the scanned layout with ``scan_chunk=1``
+    and no pipeline axis, as in the JAX package (``ValueError``s)."""
+    with pytest.raises(ValueError, match="scan_flows=True with scan_chunk=1"):
+        _port("mcglow", reversible_flows=True, scan_flows=False)
+    with pytest.raises(ValueError, match="scan_flows=True with scan_chunk=1"):
+        _port("mcglow", reversible_flows=True, scan_chunk=2)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        _port("cglow", reversible_flows=True, pipe_axis="pipe")
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        ploop.Experiment(dict(pconfig.load_config(), data_name="Synthetic", model_name="mcglow",
+                              device="cpu", reversible_flows=True, pipe_size=2))
+
+
 # --------------------------------------------------------- import, export
 def _shapes(tree) -> dict:
     return {jax.tree_util.keystr(p): tuple(a.shape)
@@ -603,7 +703,11 @@ def runs(tmp_path_factory):
         (split,) = cli_train.main(_argv(tmp / "split", "mcglow", "--num_epochs", "2",
                                         "--resume_mode", "1"), **COMMON)
         (tested,) = cli_test_model.main(_argv(tmp / "full", "mcglow"), **COMMON)
-    return dict(tmp=tmp, full=full, split=split, tested=tested, ddi=ddi)
+    with pytest.MonkeyPatch.context() as mp:  # one epoch with the reversible backward
+        mp.setattr(pdatasets, "_make_synthetic", functools.lru_cache(_make_synthetic))
+        (rev,) = cli_train.main(_argv(tmp / "rev", "mcglow", "--num_epochs", "1"),
+                                **dict(COMMON, reversible_flows=True, remat=True))
+    return dict(tmp=tmp, full=full, split=split, tested=tested, ddi=ddi, rev=rev)
 
 
 def test_trainer_resume_is_bit_equal_and_skips_ddi(runs):
@@ -635,6 +739,17 @@ def test_trainer_logs_bits_per_dim(runs):
     assert np.isfinite(runs["tested"].history["test/Loss"]).all()
     ckpt = jax_load_checkpoint(cfg, full.tag, "best")
     assert jglow.detect_glow_scan_chunk(ckpt["model_dict"]) == 1
+
+
+def test_trainer_takes_reversible_flows_and_remat(runs):
+    """``cli.train`` with ``reversible_flows`` and the step's ``remat``: the
+    model runs the reversible backward, and its first epoch's bits/dim
+    equal the ``remat_flows`` run's (the same math, ``rtol=1e-4``)."""
+    rev, full = runs["rev"], runs["full"]
+    assert rev.model.reversible_flows and rev.cfg["glow"]["reversible_flows"]
+    for key in ("train/Loss", "test/Loss"):
+        np.testing.assert_allclose(rev.logger.history[key][0], full.logger.history[key][0],
+                                   rtol=1e-4, err_msg=key)
 
 
 @pytest.mark.parametrize("workflow", ["generate", "transit", "create"])
@@ -671,7 +786,7 @@ def test_config_matches_jax(name):
             build_model(small)
 
 
-@pytest.mark.parametrize("key,value", [("reversible_flows", True), ("pipe_size", 2)])
+@pytest.mark.parametrize("key,value", [("pipe_size", 2)])
 def test_unported_glow_options_are_refused(tmp_path, key, value):
     with pytest.raises(NotImplementedError, match=key):
         cli_train.main(_argv(tmp_path, "mcglow"), **dict(COMMON, **{key: value}))

@@ -21,6 +21,7 @@ state in the checkpoint).
 import copy
 import os
 import pickle
+import signal
 import threading
 
 import numpy as np
@@ -246,9 +247,11 @@ class _IS:
         return self.values.pop(0)
 
 
-def _run(monkeypatch, cfg, num_epochs, is_values, crash_at=None):
+def _run(monkeypatch, cfg, num_epochs, is_values, crash_at=None, term_at=None):
     """One ``Experiment.run``; returns it and its ``(epoch, copy_to_best)``
-    checkpoints. ``crash_at``: the train step raises on that call."""
+    checkpoints. ``crash_at``: the train step raises on that call;
+    ``term_at``: the process sends itself SIGTERM just before that call
+    (once the run's own handler is in place)."""
     monkeypatch.setattr(ploop, "inception_score", _IS(is_values))
     exp = ploop.Experiment(cfg)
     calls, ckpts = [0], []
@@ -269,6 +272,10 @@ def _run(monkeypatch, cfg, num_epochs, is_values, crash_at=None):
             calls[0] += 1
             if calls[0] == crash_at:
                 raise KeyboardInterrupt("stopped")
+            if calls[0] == term_at:
+                handler = signal.getsignal(signal.SIGTERM)
+                assert getattr(handler, "__name__", "") == "on_term", handler  # never the default
+                os.kill(os.getpid(), signal.SIGTERM)
             return step(ts, batch)
 
         exp.train_step = counted
@@ -301,10 +308,12 @@ def _assert_same_state(a, b):
 def runs(tmp_path_factory):
     """An uninterrupted 3-epoch run; the same stopped after 2 epochs and
     resumed (mode 1) to 3; the same stopped inside epoch 3 after a
-    mid-epoch checkpoint and resumed."""
+    mid-epoch checkpoint and resumed; the same stopped by SIGTERM, with and
+    without step checkpoints, and resumed."""
     mp = pytest.MonkeyPatch()
     try:
-        dirs = {k: str(tmp_path_factory.mktemp(k)) for k in ("full", "split", "mid")}
+        dirs = {k: str(tmp_path_factory.mktemp(k))
+                for k in ("full", "split", "mid", "term_step", "term_epoch")}
         for d in dirs.values():
             _write_classifier(d)
         out = {}
@@ -322,6 +331,14 @@ def runs(tmp_path_factory):
         out["mid_first"] = _run(mp, _cfg(dirs["mid"], save_every_steps=1), 3, [2.0, 1.0],
                                 crash_at=6)
         out["mid"] = _run(mp, _cfg(dirs["mid"], resume_mode=1, save_every_steps=1), 3, [3.0])
+        # SIGTERM in epoch 3's first step, with step checkpoints: it stops there
+        out["term_step_first"] = _run(mp, _cfg(dirs["term_step"], save_every_steps=1), 3,
+                                      [2.0, 1.0], term_at=5)
+        out["term_step"] = _run(mp, _cfg(dirs["term_step"], resume_mode=1, save_every_steps=1),
+                                3, [3.0])
+        # SIGTERM in epoch 2's first step, without: it stops after epoch 2
+        out["term_epoch_first"] = _run(mp, _cfg(dirs["term_epoch"]), 3, [2.0, 1.0], term_at=3)
+        out["term_epoch"] = _run(mp, _cfg(dirs["term_epoch"], resume_mode=1), 3, [3.0])
         out["dirs"] = dirs
         yield out
     finally:
@@ -518,12 +535,100 @@ def test_mid_epoch_resume_refuses_another_batch_size(runs):
         exp._resume()
 
 
-@pytest.mark.parametrize("key", ["remat", "fuse_g_pass"])
-def test_unported_step_options_raise(tmp_path, key):
-    with pytest.raises(NotImplementedError, match=key):
-        ploop.Experiment(_cfg(str(tmp_path), **{key: True}))
-    with pytest.raises(NotImplementedError, match=key):
-        cli_train.main(["--data_name", "Synthetic", "--device", "cpu"], **{key: True})
+def test_sigterm_stops_at_a_checkpoint_and_resumes_bit_equal(runs):
+    """SIGTERM stops the run at the step checkpoint it writes at once (with
+    ``save_every_steps``) or after the epoch's checkpoint (without), puts
+    the previous handler back, and ``resume_mode=1`` ends where the
+    uninterrupted run ends, bit for bit."""
+    exp, ckpts = runs["term_step_first"]
+    assert ckpts[-1] == (3, False, 1)
+    assert [s["train_steps"] for s in exp.epoch_stats] == [2, 2, 1]
+    assert exp.logger.history["test/InceptionScore"] == [2.0, 1.0]
+    exp, ckpts = runs["term_epoch_first"]
+    assert ckpts == [(1, True, None), (2, False, None)]
+    assert [s["train_steps"] for s in exp.epoch_stats] == [2, 2]
+    assert runs["term_epoch"][0].resumed["epoch"] == 3
+    assert runs["term_step"][0].resumed["mid_epoch_step"] == 1
+    full = runs["full"][0]
+    for name in ("term_step", "term_epoch"):
+        _assert_same_state(_state(full), _state(runs[name][0]))
+        assert dict(runs[name][0].logger.history) == dict(full.logger.history), name
+    assert signal.getsignal(signal.SIGTERM) is signal.SIG_DFL
+
+
+def test_trainer_takes_fuse_g_pass_and_remat(runs, tmp_path, monkeypatch):
+    """``cli.train`` with the GAN step's ``fuse_g_pass`` and ``remat``: the
+    first epoch equals the plain run's (the same math; ``rtol=1e-5``)."""
+    _write_classifier(str(tmp_path))
+    monkeypatch.setattr(ploop, "inception_score", _IS([2.0]))
+    cfg = _cfg(str(tmp_path), fuse_g_pass=True, remat=True)
+    argv = ["--data_name", "Synthetic", "--device", "cpu", "--output_dir", str(tmp_path)]
+    (exp,) = cli_train.main(argv + ["--num_epochs", "1"],
+                            **{k: v for k, v in cfg.items() if k not in ("data_name", "device",
+                                                                         "output_dir")})
+    assert exp.cfg["fuse_g_pass"] and exp.cfg["remat"]
+    full = runs["full"][0].logger.history
+    for key in ("train/Loss_D", "train/Loss_G", "test/FID"):
+        np.testing.assert_allclose(exp.logger.history[key][0], full[key][0], rtol=1e-5,
+                                   err_msg=key)
+
+
+SINGLE = {
+    "mcvae": {"vae": {"hidden_size": [8, 16], "latent_size": 8, "num_res_block": 1}},
+    "vqvae": {"vqvae": {"hidden_size": [8, 8], "num_res_block": 1, "embedding_size": 8,
+                        "num_embedding": 16, "vq_commit": 0.25}},
+    "mcpixelcnn": {"pixelcnn": {"num_layer": 3, "hidden_size": 8, "num_embedding": 16}},
+    "classifier": {"classifier": {"hidden_size": [4, 8, 8, 8]}},
+}
+
+
+@pytest.mark.parametrize("name", list(SINGLE))
+def test_remat_step_equals_the_plain_step(name, monkeypatch):
+    """The generic step with ``remat`` against without, two steps from one
+    state: losses, parameters and every buffer equal, the VAE's noise
+    generator left in the same state, the forward run twice a step (the
+    recompute) and the VQ EMA moved once a step (one ``vq_ema`` call, which
+    writes the buffers behind their version counters, as the kernel does)."""
+    from mcgm_tpu_torch.models import build_model
+    from mcgm_tpu_torch.ops import vq as pvq
+    from mcgm_tpu_torch.train import optim as popt
+    from mcgm_tpu_torch.train import state as pstate
+
+    cfg = dict(pconfig.process_control(dict(pconfig.load_config(), data_name="CIFAR10",
+                                            model_name=name, derive_model_params=False,
+                                            **SINGLE[name])), classes_size=4)
+    ema = [0]
+    real_ema = pvq.vq_ema
+
+    def counted_ema(flat, code, w, *buffers):
+        # as the kernel does: the buffers written where no version counter sees it
+        ema[0] += 1
+        return real_ema(flat, code, w, *(b.data if torch.is_tensor(b) else b for b in buffers))
+
+    monkeypatch.setattr(pvq, "vq_ema", counted_ema)
+    g = torch.Generator().manual_seed(1)
+    img = (torch.randint(0, 16, (4, 8, 8), generator=g) if "pixelcnn" in name
+           else torch.rand((4, 32, 32, 3), generator=g) * 2 - 1)
+    batch = {"img": img, "label": torch.arange(4) % 4}
+    res = []
+    for remat in (False, True):
+        model = build_model(cfg, "cpu")
+        rng = torch.Generator().manual_seed(0) if name == "mcvae" else None
+        ts = pstate.TrainState(model, popt.make_optimizer(
+            model.parameters(), {"optimizer_name": "Adam", "lr": 1e-3}, grad_clip=1.0), rng=rng)
+        calls = [0]
+        first = next(m for m in model.modules() if len(list(m.parameters(recurse=False))))
+        first.register_forward_pre_hook(lambda *_: calls.__setitem__(0, calls[0] + 1))
+        ema[0] = 0
+        step = pstate.make_train_step(remat=remat)
+        losses = [step(ts, batch)["loss"] for _ in range(2)]
+        res.append((losses, model.state_dict(), rng, calls[0], ema[0]))
+    (la, sa, ra, ca, ea), (lb, sb, rb, cb, eb) = res
+    assert all(torch.equal(a, b) for a, b in zip(la, lb))
+    assert set(sa) == set(sb) and all(torch.equal(sa[k], sb[k]) for k in sa)
+    assert ra is None or torch.equal(ra.get_state(), rb.get_state())
+    assert (ca, cb) == (2, 4)
+    assert (ea, eb) == ((2, 2) if name == "vqvae" else (0, 0))
 
 
 def test_entry_points_need_a_card_unless_cpu(tmp_path):

@@ -124,15 +124,17 @@ def _tree_keys(collection, tree):
     return from_jax_variables({"params": {collection: tree}})
 
 
-def _jax_step(variables, img, label, jm=None, betas=BETAS):
-    """The JAX step of ``jm`` (the tiny MCGAN by default), compiled once at
-    a low backend optimisation level (the compile, not the run, is what
-    costs here), from a fresh optimizer state; returns the new state, the
-    metrics and the z it drew."""
+def _jax_step(variables, img, label, jm=None, betas=BETAS, **options):
+    """The JAX step of ``jm`` (the tiny MCGAN by default; ``options`` such
+    as ``fuse_g_pass`` and ``remat`` go to the factory), compiled once at a
+    low backend optimisation level (the compile, not the run, is what costs
+    here), from a fresh optimizer state; returns the new state, the metrics
+    and the z it drew (the fused step draws the same chain)."""
     jm = JaxMCGAN(**ARCH) if jm is None else jm
     g_opt = _recording(jopt.make_optimizer(ADAM, LR, betas))
     d_opt = _recording(jopt.make_optimizer(ADAM, LR, betas))
-    step = jstate.make_gan_train_step(jm, g_opt, d_opt, d_iter=D_ITER, unroll=D_ITER)
+    step = jstate.make_gan_train_step(jm, g_opt, d_opt, d_iter=D_ITER, unroll=D_ITER,
+                                      **options)
 
     def run(v, batch, key):
         params, state = jstate.split_variables(v)
@@ -163,11 +165,14 @@ def stepped():
     v = _fill(jax.eval_shape(lambda: JaxMCGAN(**ARCH).init(
         rngs, {"img": img, "label": label}, train=True)), rng)
     # torch's first optimizer imports torch._dynamo (seconds): build the
-    # port's state while XLA compiles, which releases the interpreter lock
-    with ThreadPoolExecutor(1) as pool:
+    # port's state while XLA compiles, which releases the interpreter lock;
+    # the fused step's JAX program (``fused_stepped``) compiles beside
+    with ThreadPoolExecutor(2) as pool:
         port = pool.submit(_port_state, v)
+        fused = pool.submit(_jax_step, v, img, label, fuse_g_pass=True, remat=True)
         new, metrics, zs = _jax_step(v, img, label)
         pts = port.result()
+        fused = fused.result()
     before = {k: t.clone() for k, t in pts.model.state_dict().items()}
     g_seen = _record_grads(pts.g_opt, pts.model.generator, "generator")
     d_seen = _record_grads(pts.d_opt, pts.model.discriminator, "discriminator")
@@ -183,7 +188,8 @@ def stepped():
         port_grads={**g_seen[0], **d_seen[0]}, n_updates=(len(d_seen), len(g_seen)),
         jax_after=from_jax_gan_train_state(new.g_params, new.d_params, new.state),
         port_after=pts.model.state_dict(), before=before, port=pts,
-        launches=fd.first_dblock.launches - launches)
+        launches=fd.first_dblock.launches - launches, v=v, img=img, label=label,
+        fused_jax=fused)
 
 
 def test_step_losses_match_jax(stepped):
@@ -236,6 +242,81 @@ def test_step_buffers_match_jax(stepped, kind):
                                    stepped["jax_after"][k].numpy(), err_msg=k, **STATE_TOL)
         if kind != "codebook" and stepped["before"][k].numel() > 1:  # a 1-vector u is +-1
             assert not torch.equal(stepped["port_after"][k], stepped["before"][k]), k
+
+
+# ------------------------------------------- the fused G pass and remat
+FLAGS = {"fuse_g_pass": dict(fuse_g_pass=True), "remat": dict(remat=True),
+         "both": dict(fuse_g_pass=True, remat=True)}
+
+
+@pytest.fixture(scope="module")
+def fused_stepped(stepped):
+    """The JAX step compiled with ``fuse_g_pass=True, remat=True`` (one
+    vmapped G pass at ``d_iter * B``, BatchNorm statistics re-chained,
+    ``jax.checkpoint`` around each loss), and the port's step with each of
+    ``FLAGS`` from the same state, batch and z as ``stepped``'s."""
+    v, img, label = stepped["v"], stepped["img"], stepped["label"]
+    new, metrics, zs = stepped["fused_jax"]
+    out = {"jax_metrics": {k: float(m) for k, m in metrics.items()},
+           "jax_grads": {**_tree_keys("generator", new.g_opt_state[1]),
+                         **_tree_keys("discriminator", new.d_opt_state[1])},
+           "jax_after": from_jax_gan_train_state(new.g_params, new.d_params, new.state)}
+    for name, flags in FLAGS.items():
+        pts = _port_state(v)
+        g_seen = _record_grads(pts.g_opt, pts.model.generator, "generator")
+        d_seen = _record_grads(pts.d_opt, pts.model.discriminator, "discriminator")
+        got = pstate.make_gan_train_step(d_iter=D_ITER, **flags)(
+            pts, {"img": torch.from_numpy(img), "label": torch.from_numpy(label)},
+            z=[torch.tensor(np.asarray(z)) for z in zs])
+        out[name] = dict(metrics={k: float(m) for k, m in got.items()},
+                         grads={**g_seen[0], **d_seen[0]}, n_updates=(len(d_seen), len(g_seen)),
+                         after=pts.model.state_dict(), model=pts.model)
+    return out
+
+
+@pytest.mark.parametrize("flags", list(FLAGS))
+def test_fused_and_remat_step_losses_match_jax(fused_stepped, flags):
+    got = fused_stepped[flags]
+    for k in ("Loss_D", "Loss_G", "Loss"):
+        np.testing.assert_allclose(got["metrics"][k], fused_stepped["jax_metrics"][k],
+                                   rtol=1e-4, atol=1e-5, err_msg=k)
+    assert got["n_updates"] == (D_ITER, 1)
+
+
+@pytest.mark.parametrize("flags", list(FLAGS))
+def test_fused_and_remat_step_gradients_and_parameters_match_jax(fused_stepped, stepped,
+                                                                  flags):
+    """The first D update's gradients and the G update's, then every
+    parameter, under the tolerances of the unfused step's tests."""
+    got, st = fused_stepped[flags], fused_stepped
+    names = [n for n, _ in got["model"].named_parameters()]
+    assert set(names) == set(st["jax_grads"]) == set(got["grads"])
+    for k in names:
+        w, g = st["jax_grads"][k].numpy(), got["grads"][k].numpy()
+        np.testing.assert_allclose(g, w, rtol=GRAD_RTOL, atol=GRAD_ATOL * np.abs(w).max(),
+                                   err_msg=k)
+        updates = D_ITER if k.startswith("discriminator") else 1
+        diff = np.abs(got["after"][k].numpy() - st["jax_after"][k].numpy())
+        assert diff.max() <= 2 * LR * updates, (k, diff.max() / LR)
+        clear = np.abs(w) > SIGN_NOISE * np.abs(w).max()
+        assert diff[clear].max() <= LR / 100, (k, diff[clear].max() / LR)
+    # the port's flags change nothing of the plain step's numbers on the CPU
+    for k, t in stepped["port_after"].items():
+        assert torch.allclose(got["after"][k], t, rtol=1e-5, atol=1e-7), k
+
+
+@pytest.mark.parametrize("flags", list(FLAGS))
+def test_fused_and_remat_step_buffers_match_jax(fused_stepped, flags):
+    """BatchNorm statistics moved once per slice of the fused pass (the JAX
+    step re-chains them), each ``u`` once per D call; not twice under
+    ``remat``."""
+    got, st = fused_stepped[flags], fused_stepped
+    for kind in ("running_mean", "running_var", ".u", "codebook"):
+        keys = [k for k in st["jax_after"] if k.endswith(kind)]
+        assert keys
+        for k in keys:
+            np.testing.assert_allclose(got["after"][k].numpy(), st["jax_after"][k].numpy(),
+                                       err_msg=k, **STATE_TOL)
 
 
 # ------------------------------------------------------------ CGAN step
