@@ -121,8 +121,8 @@ Phases, each of which exits non-zero on failure:
     version, the cuBLAS yardstick, the bound); the digits' ragged batch,
     K 64 and N 200, M = 1, a soft indicator, the Pallas form, no gate, f32
     operands, K 96 with P 16 (the generic bf16 kernel), 100 modes, and
-    1,000 and 1,200 grids x 64 positions (a block of the samples kernel
-    takes more than one batch of 8 samples' codes) checked, each line
+    1,000 and 1,200 grids x 64 positions (many tiles of two samples per
+    block of the wide kernel) checked, each line
     naming the kernel the C entry point chose (``variant``); its gradient
     against the plain version's autograd;
 15. pixelcnn (before ``vqvae:``'s folder is removed): MCPixelCNN and
@@ -146,7 +146,7 @@ Phases, each of which exits non-zero on failure:
     seeded batches, then 3 + 10 steps through ``mc_gated_matmul`` and
     through its plain version in turns from the DDI'd state and one noise
     draw (images/s, bits/dim; 96 launches a step: 48 in the forward, 48 in
-    the recompute), the first run of each path held to the other (bits/dim
+    the recompute; and 48 of the backward kernel), the first run of each path held to the other (bits/dim
     and every parameter within ``TRAIN_TOL * max|plain|``); one eval batch
     of 512 (48 launches); the eval forward with random zero convs held to
     its plain version (``SLICE_TOL``); ``reverse(forward(x))`` against x
@@ -157,8 +157,12 @@ Phases, each of which exits non-zero on failure:
     epoch 3 with the state checked equal, and ``cli.test_model``; one step
     of each path under ``torch.profiler`` at the end (``glow profile:``:
     launches a step, busy share, category ms). ``mc_gated_matmul``'s
-    checks (phase 14) gain Glow's three shapes, timed, with and without
-    the gate, and the widened backward (``dalpha``, ``dbeta``);
+    checks (phase 14) gain Glow's three shapes on the wide kernel, timed
+    (beside the generic kernel's recorded times, constants), with and
+    without the gate, the wide kernel's other shapes (K below 512, N not a
+    multiple of 128, P 32 and 192), the widened backward (``dalpha``,
+    ``dbeta``), and the backward kernel at the three levels, timed, and at
+    the other shapes, each against the plain f32 backward;
 18. real (continued): MCGlow and CGlow on the digits, ``REAL_GLOW_EPOCHS``
     epochs each, bits/dim per epoch side by side, and the five
     ``cli.sample`` calls of phase 9 on each ``_best``.
@@ -489,6 +493,7 @@ def sass_tensor_core_count(name: str) -> dict | None:
 
 # ------------------------------------------------------------------- slice
 PHASES = ("generate", "discriminate")
+MATMUL_CATEGORY = "matmul (cuBLAS: Dense, SN power iterations)"
 
 
 def kernel_category(name: str) -> str:
@@ -498,10 +503,12 @@ def kernel_category(name: str) -> str:
         return "vq_assign / vq_ema (hand kernels)"
     if "mc_gated_matmul_kernel" in name:
         return "mc_gated_matmul (hand kernel)"
+    if "mc_gated_matmul_backward_kernel" in name:
+        return "mc_gated_matmul backward (hand kernel)"
     if any(k in name for k in ("xmma", "cudnn", "dgrad", "wgrad", "convolve", "winograd")):
         return "conv (cuDNN)"
     if any(k in name for k in ("gemv", "gemm", "nvjet", "cublas", "dot_kernel", "cutlass")):
-        return "matmul (cuBLAS: Dense, SN power iterations)"
+        return MATMUL_CATEGORY
     if "multi_tensor_apply" in name or "foreach" in name.lower():
         return "optimizer (Adam, multi-tensor)"
     if "upsample" in name:
@@ -557,7 +564,10 @@ def device_profile(run, spans, out_dir: str, tag: str) -> dict:
            "span_device_busy_ms": {n: sum(b) for n, b in span_busy.items()},
            "span_device_busy_ms_per_call": span_busy,
            "category_ms": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
-           "top_kernels": [{"name": n[:120], "ms": ms, "calls": c} for n, ms, c in kernels[:10]]}
+           "top_kernels": [{"name": n[:120], "ms": ms, "calls": c} for n, ms, c in kernels[:10]],
+           "kernels_by_category": {cat: [{"name": n[:120], "ms": ms, "calls": c}
+                                         for n, ms, c in kernels if kernel_category(n) == cat]
+                                   for cat in by_cat}}
     with open(os.path.join(out_dir, f"{tag}_profile.json"), "w") as f:
         json.dump(dict(rec, all_kernels=[{"name": n, "ms": ms, "calls": c}
                                          for n, ms, c in kernels]), f, indent=1)
@@ -1413,7 +1423,9 @@ def kernel_device_times(timers: list, reps: int = 20) -> None:
         log(f"{kname} device:", json.dumps({k: rec[k] for k in (
             "shape", "case", "ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
             "roofline_share") + extra + tuple(k for k in (
-                "variant", "rows_rescored", "rows_paired", "bound_f32_ms") if k in rec)}))
+                "variant", "rows_rescored", "rows_paired", "bound_f32_ms",
+                "generic_recorded")
+                if k in rec)}))
 
 
 def vq_launches() -> dict:
@@ -1437,12 +1449,13 @@ def ema_kernels() -> int:
 def zero_counts() -> None:
     """Every kernel's count to 0, just before a path is driven."""
     fd.first_dblock.launches = kvq.vq_assign.launches = kvq.vq_ema.launches = 0
-    kmc.mc_gated_matmul.launches = 0
+    kmc.mc_gated_matmul.launches = kmc.mc_gated_matmul.backward_launches = 0
 
 
 def counts() -> dict:
     return {"first_dblock": fd.first_dblock.launches, **vq_launches(),
-            "mc_gated_matmul": kmc.mc_gated_matmul.launches}
+            "mc_gated_matmul": kmc.mc_gated_matmul.launches,
+            "mc_gated_matmul_backward": kmc.mc_gated_matmul.backward_launches}
 
 
 # ------------------------------------------------------------------ VAE
@@ -1677,8 +1690,9 @@ def run_vqvae(name_limit: str, data_dir: str, out_dir: str):
     return {"step": step_counts, "eval": eval_counts, "trainer": trainer_counts}, result, profile
 
 
-def train_profile_single(ts, batch, step, out_dir: str, tag: str) -> dict:
-    """One single-model train step under ``torch.profiler``."""
+def train_profile_single(ts, batch, step, out_dir: str, tag: str, detail=()) -> dict:
+    """One single-model train step under ``torch.profiler``; with
+    ``detail``, the kernels of those categories by name."""
     def run():
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1687,8 +1701,9 @@ def train_profile_single(ts, batch, step, out_dir: str, tag: str) -> dict:
         return time.perf_counter() - t
 
     rec = device_profile(run, (), out_dir, tag)
-    return {k: rec[k] for k in ("window_ms", "device_busy_ms", "device_busy_share",
-                                "kernel_launches", "category_ms", "top_kernels")}
+    return dict({k: rec[k] for k in ("window_ms", "device_busy_ms", "device_busy_share",
+                                     "kernel_launches", "category_ms", "top_kernels")},
+                **{f"kernels {cat}": rec["kernels_by_category"].get(cat, []) for cat in detail})
 
 
 def run_real_vae(name_limit: str, base: list, out_dir: str):
@@ -1708,8 +1723,9 @@ def run_real_vae(name_limit: str, base: list, out_dir: str):
         evals = sum(-(-s["eval_images"] // exp.cfg["batch_size"]["train"])
                     for s in exp.epoch_stats)
         want = ({"first_dblock": 0, "vq_assign": steps + evals, "vq_ema": steps * ema_kernels(),
-                 "mc_gated_matmul": 0} if model == "vqvae"
-                else {"first_dblock": 0, "vq_assign": 0, "vq_ema": 0, "mc_gated_matmul": 0})
+                 "mc_gated_matmul": 0, "mc_gated_matmul_backward": 0} if model == "vqvae"
+                else {"first_dblock": 0, "vq_assign": 0, "vq_ema": 0, "mc_gated_matmul": 0,
+                      "mc_gated_matmul_backward": 0})
         if launches[model] != want:
             bad.append(f"{model}: launches {launches[model]}, want {want}")
         hist = exp.logger.history.get(f"test/{metric}", [])
@@ -1745,6 +1761,32 @@ def mc_gated_matmul_bound(B, P, K, N, modes, esize=2, gate=True, affine=True):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def mc_gated_matmul_backward_bound(B, P, K, N, modes):
+    """Least time of one backward kernel call: ``x``, ``w`` and ``g`` read
+    and ``gza`` and ``x``'s copy ``xt`` written (bf16), alpha / beta and the
+    gate read and dalpha / dbeta written (f32); ``2 M N K`` operations (the
+    recompute) at the bf16 peak."""
+    M = B * P
+    nbytes = 2 * (2 * M * K + N * K + 2 * M * N) + 4 * (4 * N + B * modes + modes * N)
+    t_ops = 2 * M * N * K / PEAK_BF16_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def mc_backward_parts_bound(B, P, K, N) -> dict:
+    """Least times (bytes at the memory rate against bf16 operations at the
+    tensor-core rate) of the backward's parts: a copy of ``x`` to ``[K, B,
+    P]`` (the kernel writes one; PyTorch's is timed beside it), ``dx = w^T
+    gza`` and ``dw = gza xt^T``."""
+    M = B * P
+
+    def bound(nbytes, flop):
+        return max(nbytes / PEAK_BYTES, flop / PEAK_BF16_FLOPS) * 1e3
+
+    return {"x_copy": bound(4 * M * K, 0), "dx": bound(2 * (N * K + M * N + M * K), 2 * M * N * K),
+            "dw": bound(2 * (M * N + M * K + N * K), 2 * M * N * K)}
+
+
 def mc_inputs(B, K, N, P, modes, dtype, seed, soft=False):
     """``x [B, K(, P)]`` ~ N(0, 1), ``w [N, K]`` ~ N(0, 1/K), BatchNorm-like
     alpha in [0.5, 1.5] and beta ~ N(0, 0.1), a binary codebook and one-hot
@@ -1763,7 +1805,8 @@ def mc_inputs(B, K, N, P, modes, dtype, seed, soft=False):
 
 
 def check_mc_gated_matmul(B, K, N, P, relu, seed, case, timers=None, modes=10,
-                          dtype=torch.bfloat16, gate=True, affine=True, soft=False):
+                          dtype=torch.bfloat16, gate=True, affine=True, soft=False,
+                          recorded=None):
     """The kernel against its plain version on the same inputs: within
     ``KERNEL_TOL * max|plain|`` with bf16 operands (both round f32 sums to
     bf16 once), ``MC_TOL_F32 * max|plain|`` with f32 ones. With ``timers``,
@@ -1785,6 +1828,8 @@ def check_mc_gated_matmul(B, K, N, P, relu, seed, case, timers=None, modes=10,
            "relu": relu, "gate": gate,
            "affine": affine, "soft_indicator": soft, "max_abs_err": err,
            "max_abs_plain": scale, "tol": tol * scale}
+    if recorded is not None:
+        rec["generic_recorded"] = recorded
     if timers is not None:
         esize = 2 if dtype == torch.bfloat16 else 4
         rec["bound_ms"], rec["bound_by"] = mc_gated_matmul_bound(B, P, K, N, modes, esize,
@@ -1858,22 +1903,146 @@ def check_mc_gated_matmul_affine_grad(seed, gate: bool):
         raise SystemExit(f"mc_gated_matmul's widened gradient disagrees: {json.dumps(rec)}")
 
 
-def check_mc_gated_matmul_glow(timers: list) -> list:
+# the times of the generic kernel, which took Glow's levels 1-3 before the
+# wide kernel, as recorded then (H100 80GB HBM3, 700 W): device ms, wrapper
+# ms and the cuBLAS yardstick's ms. Constants, not measured by this script:
+# printed beside the wide kernel's lines under "generic_recorded", never in
+# the kernels line
+GLOW_GENERIC_RECORDED = tuple(
+    {"note": "recorded constant, not measured in this run", **t}
+    for t in ({"ms": 0.3860, "wrapper_ms": 0.391, "library_ms": 0.1409},
+              {"ms": 0.0970, "wrapper_ms": 0.100, "library_ms": 0.0627},
+              {"ms": 0.0270, "wrapper_ms": 0.065, "library_ms": 0.0584}))
+
+
+def check_mc_gated_matmul_backward(B, P, seed, case, timers=None, gate=True, K=512, N=512):
+    """The gated 1x1's gradient at Glow's K = N = 512, or the K and N given
+    (bf16, ReLU, alpha and beta requiring gradients), through the backward kernel and the two bf16
+    cuBLAS products, against the plain f32 backward on the same inputs:
+    ``gza`` (the kernel's bf16 output) and ``dx`` / ``dw`` within
+    ``KERNEL_TOL * max``, ``dalpha`` / ``dbeta`` within ``1e-4 * max``; two
+    launches of the kernel bit-equal. The upstream gradient is 0 where the
+    pre-activation is within ``1e-3 * max`` of 0 (there the plain version's
+    f32 sums, in another order, may take the ReLU's mask the other way).
+    With ``timers``: the whole kernel path (``wrapper_ms``), the plain f32
+    path, a bf16 PyTorch chain and the parts, each beside its bound."""
+    x, w, alpha, beta, ind, cb = mc_inputs(B, K, N, P, 10, torch.bfloat16, seed)
+    if not gate:
+        ind = cb = None
+    args = (x, w, alpha, beta, ind, cb, True)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 1000)
+    pre = torch.einsum("nk,bkp->bnp", w.float(), x.float()) * alpha[:, None] + beta[:, None]
+    g = (torch.randn((B, N, P), generator=gen, device=DEV)
+         * (pre.abs() > 1e-3 * pre.abs().max())).to(torch.bfloat16)
+    code = (ind @ cb)[:, :, None] if gate else torch.ones((), device=DEV)
+    gza_plain = g.float() * code * (pre > 0) * alpha[:, None]
+    del pre
+    out = kmc.mc_gated_matmul_reference(*args)
+    before = kmc.mc_gated_matmul.backward_launches
+    got = kmc.mc_gated_matmul_backward(*args, g)
+    launches = kmc.mc_gated_matmul.backward_launches - before
+    want = kmc.mc_gated_matmul_backward_reference(*args, g, out)
+    first = kmc.mc_gated_matmul_backward_kernel(*args, g)
+    second = kmc.mc_gated_matmul_backward_kernel(*args, g)
+    torch.cuda.synchronize()
+    bit_equal = all(torch.equal(a, b) for a, b in zip(first, second))
+    xt_equal = torch.equal(first[3], x.transpose(0, 1))
+    gza = first[0].float().reshape(N, B, P).transpose(0, 1)
+    errors = {}
+    for name, a, b, tol in (("gza", gza, gza_plain, KERNEL_TOL),
+                            *zip(("dx", "dw", "dalpha", "dbeta"), got, want,
+                                 (KERNEL_TOL, KERNEL_TOL, 1e-4, 1e-4))):
+        err, top = (a.float() - b.float()).abs().max().item(), b.float().abs().max().item()
+        errors[name] = {"max_abs_err": err, "max_abs_plain": top, "tol": tol * top,
+                        "ok": bool(err <= tol * top)}
+    del gza, gza_plain
+    rec = {"shape": [B * P, K, N], "B": B, "P": P, "case": case,
+           "variant": kmc.backward_variant(x, w), "gate": gate,
+           "max_abs_err": errors["gza"]["max_abs_err"], "errors": errors,
+           "launches_per_call": launches, "two_launches_bit_equal": bit_equal,
+           "xt_equal": xt_equal}
+    if timers is not None:
+        rec["bound_ms"], rec["bound_by"] = mc_gated_matmul_backward_bound(B, P, K, N, 10)
+        gza2 = first[0].view(N, B * P)
+        xt = first[3].view(K, B * P)
+        rec["parts_bound_ms"] = mc_backward_parts_bound(B, P, K, N)
+        rec["parts_ms"] = {
+            "kernel_wrapper": cuda_ms(lambda: kmc.mc_gated_matmul_backward_kernel(*args, g), 50),
+            "kernel_wrapper_without_xt": cuda_ms(lambda: kmc.mc_gated_matmul_backward_kernel(
+                *args, g, transposed_x=False), 50),
+            "x_copy_torch": cuda_ms(lambda: x.transpose(0, 1).reshape(K, B * P), 50),
+            "dx": cuda_ms(lambda: torch.mm(w.t(), gza2), 50),
+            "dw": cuda_ms(lambda: torch.mm(gza2, xt.t()), 50)}
+        wt, wx = w.expand(B, N, K), w.t().expand(B, K, N)
+
+        def library():  # bf16 products, f32 epilogue and sums
+            acc = torch.bmm(wt, x).float()
+            gz = g.float() * code * ((acc * alpha[:, None] + beta[:, None]) > 0)
+            sums = gz.sum((0, 2)), (gz * acc).sum((0, 2))
+            gzb = (gz * alpha[:, None]).to(torch.bfloat16)
+            return torch.bmm(wx, gzb), torch.einsum("bnp,bkp->nk", gzb, x), sums
+
+        rec["wrapper_ms"] = cuda_ms(lambda: kmc.mc_gated_matmul_backward(*args, g), 50)
+        rec["plain_ms"] = cuda_ms(lambda: kmc.mc_gated_matmul_backward_reference(*args, g, out),
+                                  10)
+        rec["library_ms"] = cuda_ms(library, 20)
+        timers.append((rec, "mc_gated_matmul_backward",
+                       lambda: kmc.mc_gated_matmul_backward_kernel(*args, g)))
+    log("mc_gated_matmul backward", json.dumps(rec))
+    if not (bit_equal and xt_equal and launches == 1 and rec["variant"] == "wide"
+            and all(e["ok"] for e in errors.values())):
+        raise SystemExit(f"mc_gated_matmul's backward kernel disagrees ({case}): "
+                         f"{json.dumps(rec)}")
+    return rec
+
+
+# (B, K, N, P, relu, seed) of the wide kernel's shapes besides Glow's
+WIDE_OTHER_SHAPES = ((48, 128, 192, 32, True, 77), (40, 256, 320, 192, True, 78),
+                     (33, 64, 64, 16, False, 79), (17, 64, 200, 64, True, 80))
+
+
+def check_mc_gated_matmul_glow(timers: list) -> tuple[list, list]:
     """Glow's coupling nets' gated 1x1 at B=128 (K = N = 512, ReLU): the
-    three levels (P = 256, 64, 16) with MCGlow's gate, timed; the same
-    without the gate (CGlow) and an eval batch of 512 at level 1, checked;
-    the widened backward with and without the gate."""
+    three levels (P = 256, 64, 16) with MCGlow's gate, timed (the generic
+    kernel's recorded times printed beside them, constants); the same
+    without the gate (CGlow), an eval batch of 512, the digits' last batch
+    of 17 at level 1 and 17 at level 3 and :data:`WIDE_OTHER_SHAPES`,
+    checked; the wide kernel named at each; the autograd Function's
+    backward with and without the gate; the backward kernel at the three
+    levels, timed, and without the gate, at B = 17 and at
+    :data:`WIDE_OTHER_SHAPES`, checked. Returns the timed forward and
+    backward records."""
     timed = [check_mc_gated_matmul(128, 512, 512, P, True, 60 + i,
-                                   f"Glow level {i + 1}, MCGlow (B=128, P = {P})", timers)
+                                   f"Glow level {i + 1}, MCGlow (B=128, P = {P})", timers,
+                                   recorded=GLOW_GENERIC_RECORDED[i])
              for i, P in enumerate(GLOW_POSITIONS)]
-    for i, P in enumerate(GLOW_POSITIONS):
-        check_mc_gated_matmul(128, 512, 512, P, True, 63 + i,
-                              f"Glow level {i + 1}, CGlow: no gate", gate=False)
-    check_mc_gated_matmul(512, 512, 512, 256, True, 66, "Glow level 1, eval batch of 512")
-    check_mc_gated_matmul(17, 512, 512, 256, True, 67, "Glow level 1, the digits' last batch")
+    checked = [check_mc_gated_matmul(128, 512, 512, P, True, 63 + i,
+                                     f"Glow level {i + 1}, CGlow: no gate", gate=False)
+               for i, P in enumerate(GLOW_POSITIONS)]
+    checked += [
+        check_mc_gated_matmul(512, 512, 512, 256, True, 66, "Glow level 1, eval batch of 512"),
+        check_mc_gated_matmul(17, 512, 512, 256, True, 67, "Glow level 1, the digits' last batch"),
+        check_mc_gated_matmul(17, 512, 512, 16, True, 70, "Glow level 3, the digits' last batch")]
+    # the wide kernel's other shapes: K below 512, N not a multiple of 128
+    # (a slice of 128 channels part empty; 200 not of 64 either), P 32 and
+    # 192 (64-position tiles)
+    checked += [check_mc_gated_matmul(B, K, N, P, relu, seed, f"wide: K {K}, N {N}, P {P}")
+                for B, K, N, P, relu, seed in WIDE_OTHER_SHAPES]
+    wrong = [r["case"] for r in timed + checked if r["variant"] != "wide"]
+    if wrong:
+        raise SystemExit(f"mc_gated_matmul: Glow's shapes not on the wide kernel: {wrong}")
     check_mc_gated_matmul_affine_grad(68, gate=True)
     check_mc_gated_matmul_affine_grad(69, gate=False)
-    return timed
+    backward = [check_mc_gated_matmul_backward(128, P, 71 + i,
+                                               f"Glow level {i + 1}, MCGlow (B=128, P = {P})",
+                                               timers)
+                for i, P in enumerate(GLOW_POSITIONS)]
+    check_mc_gated_matmul_backward(128, 256, 74, "Glow level 1, CGlow: no gate", gate=False)
+    check_mc_gated_matmul_backward(17, 256, 75, "Glow level 1, the digits' last batch")
+    check_mc_gated_matmul_backward(17, 16, 76, "Glow level 3, the digits' last batch")
+    for B, K, N, P, _, seed in WIDE_OTHER_SHAPES:
+        check_mc_gated_matmul_backward(B, P, seed + 10, f"wide: K {K}, N {N}, P {P}", K=K, N=N)
+    return timed, backward
 
 
 def check_mc_gated_matmul_all(timers: list) -> tuple[dict, list]:
@@ -1892,9 +2061,8 @@ def check_mc_gated_matmul_all(timers: list) -> tuple[dict, list]:
     check_mc_gated_matmul(17, 128, 128, 64, False, 45, "the digits' ragged eval batch")
     check_mc_gated_matmul(17, 64, 200, 64, True, 55, "ragged: K 64, N 200")
     check_mc_gated_matmul(48, 96, 200, 16, False, 56, "K 96, P 16: the generic bf16 kernel")
-    # a block of the samples kernel forms its samples' codes 8 at a time:
-    # the re-forward's chunk of 1,000 grids gives it more than one batch at
-    # the head, and 1,200 grids at a residual too (7-9 samples a block)
+    # the re-forward's chunk of 1,000 grids and 1,200 grids: many tiles of
+    # two samples per block of the wide kernel
     check_mc_gated_matmul(SAMPLE_CHUNK, 128, 512, 64, True, 57, "the re-forward's chunk "
                           "of grids, head")
     check_mc_gated_matmul(SAMPLE_CHUNK, 128, 128, 64, False, 58, "the re-forward's chunk "
@@ -2052,7 +2220,7 @@ def run_pixelcnn(name_limit: str, data_dir: str, out_dir: str):
         evals = sum(-(-s["eval_images"] // B) for s in exp.epoch_stats)
         per_forward = exp.model.num_layer + 1  # 16: the residuals and the head
         want = {"first_dblock": 0, "vq_assign": steps + evals, "vq_ema": 0,
-                "mc_gated_matmul": per_forward * evals}
+                "mc_gated_matmul": per_forward * evals, "mc_gated_matmul_backward": 0}
         if trainer != want:
             bad.append(f"{model} trainer: launches {trainer}, want {want}")
         saved = to_numpy(exp.state_dict())
@@ -2139,7 +2307,7 @@ def run_real_pixelcnn(name_limit: str, base: list, out_dir: str):
         evals = sum(-(-s["eval_images"] // B) for s in exp.epoch_stats)
         per_forward = exp.model.num_layer + 1  # 16: the residuals and the head
         want = {"first_dblock": 0, "vq_assign": steps + evals, "vq_ema": 0,
-                "mc_gated_matmul": per_forward * evals}
+                "mc_gated_matmul": per_forward * evals, "mc_gated_matmul_backward": 0}
         if launches[model] != want:
             bad.append(f"{model}: launches {launches[model]}, want {want}")
         hist = exp.logger.history.get("test/NLL", [])
@@ -2215,6 +2383,7 @@ def glow_steps(ts, batch, noise, step, steps: int, warmup: int) -> tuple[dict, d
     hook.remove()
     return ({"images_per_s": batch["img"].shape[0] * steps / dt,
              "ms_per_step": dt / steps * 1e3, "launches": counts()["mc_gated_matmul"],
+             "backward_launches": counts()["mc_gated_matmul_backward"],
              "bits_per_dim": [float(x) for x in losses]}, first)
 
 
@@ -2318,8 +2487,11 @@ def run_glow(name_limit: str, data_dir: str, out_dir: str):
             ts = glow_state(cfg, state, plain)
             res, grads = glow_steps(ts, batch, noise, step, TRAIN_STEPS, TRAIN_WARMUP)
             want = 0 if plain else per_step * TRAIN_STEPS
-            if res["launches"] != want or not all(math.isfinite(x) for x in res["bits_per_dim"]):
-                bad.append(f"{name} {'plain' if plain else 'kernel'} path: {res}, want {want}")
+            want_bwd = 0 if plain else GLOW_PER_FORWARD * TRAIN_STEPS
+            if res["launches"] != want or res["backward_launches"] != want_bwd \
+                    or not all(math.isfinite(x) for x in res["bits_per_dim"]):
+                bad.append(f"{name} {'plain' if plain else 'kernel'} path: {res}, want {want} "
+                           f"and {want_bwd} backward")
             steps[plain].append(res)
             first.setdefault(plain, (ts, grads))
             log(f"glow {name} {'plain' if plain else 'kernel'}:", json.dumps(res))
@@ -2374,7 +2546,8 @@ def run_glow(name_limit: str, data_dir: str, out_dir: str):
         n_steps = sum(st["train_steps"] for st in exp.epoch_stats)
         evals = sum(-(-st["eval_images"] // B) for st in exp.epoch_stats)
         want = {"first_dblock": 0, "vq_assign": 0, "vq_ema": 0,
-                "mc_gated_matmul": per_step * n_steps + GLOW_PER_FORWARD * evals}
+                "mc_gated_matmul": per_step * n_steps + GLOW_PER_FORWARD * evals,
+                "mc_gated_matmul_backward": GLOW_PER_FORWARD * n_steps}
         if trainer != want:
             bad.append(f"{name} trainer: launches {trainer}, want {want}")
         saved = to_numpy(exp.state_dict())
@@ -2392,7 +2565,9 @@ def run_glow(name_limit: str, data_dir: str, out_dir: str):
                for v in hist.values()):
             bad.append(f"{name}: bits/dim not finite every epoch: {hist}")
         stats = exp.epoch_stats + exp3.epoch_stats
-        launches[name] = {"step": steps[False][0]["launches"], "eval_batch": eval_counts,
+        launches[name] = {"step": steps[False][0]["launches"],
+                          "step_backward": steps[False][0]["backward_launches"],
+                          "eval_batch": eval_counts,
                           "generate_sweeps": sweep_counts, "trainer": trainer}
         runs[name] = {
             "parameters": sum(p.numel() for p in model.parameters()),
@@ -2404,6 +2579,7 @@ def run_glow(name_limit: str, data_dir: str, out_dir: str):
             "plain_ms_per_step": [r["ms_per_step"] for r in steps[True]],
             "bits_per_dim": steps[False][0]["bits_per_dim"],
             "launches_per_step": steps[False][0]["launches"] / TRAIN_STEPS,
+            "backward_launches_per_step": steps[False][0]["backward_launches"] / TRAIN_STEPS,
             "kernel_vs_plain": cmp, "eval_kernel_vs_plain": eval_cmp,
             "eval_batch_bits_per_dim": float(ev["loss"]),
             "reconstruction_max_abs_err": recon_err,
@@ -2429,9 +2605,11 @@ def run_glow(name_limit: str, data_dir: str, out_dir: str):
         for name, pair in profiles.items():
             for path, ts in zip(("kernel", "plain"), pair):
                 zero_counts()
-                rec = train_profile_single(ts, batch, run_step, prof_dir, f"glow_{name}_{path}")
+                rec = train_profile_single(ts, batch, run_step, prof_dir, f"glow_{name}_{path}",
+                                           detail=(MATMUL_CATEGORY,))
                 out[f"{name}_{path}"] = dict(rec, mc_gated_matmul_launches=counts()[
-                    "mc_gated_matmul"])
+                    "mc_gated_matmul"], mc_gated_matmul_backward_launches=counts()[
+                    "mc_gated_matmul_backward"])
         return out
 
     return launches, runs, profile
@@ -2455,7 +2633,8 @@ def run_real_glow(name_limit: str, base: list, out_dir: str):
         steps = sum(st["train_steps"] for st in exp.epoch_stats)
         evals = sum(-(-st["eval_images"] // B) for st in exp.epoch_stats)
         want = {"first_dblock": 0, "vq_assign": 0, "vq_ema": 0,
-                "mc_gated_matmul": glow_per_step(exp.cfg) * steps + GLOW_PER_FORWARD * evals}
+                "mc_gated_matmul": glow_per_step(exp.cfg) * steps + GLOW_PER_FORWARD * evals,
+                "mc_gated_matmul_backward": GLOW_PER_FORWARD * steps}
         if trainer != want:
             bad.append(f"{name}: launches {trainer}, want {want}")
         hist = exp.logger.history.get("test/Loss", [])
@@ -2728,6 +2907,7 @@ def run_glow_reversible(name_limit: str):
             timed, _ = glow_steps(ts, batch, noise, step, TRAIN_STEPS, TRAIN_WARMUP)
             rec[opt] = {"images_per_s": timed["images_per_s"], "ms_per_step": timed["ms_per_step"],
                         "launches_per_step": timed["launches"] / TRAIN_STEPS,
+                        "backward_launches_per_step": timed["backward_launches"] / TRAIN_STEPS,
                         "bits_per_dim": timed["bits_per_dim"][-1],
                         "peak_mem_gib": _peak_gib(lambda: step(ts, batch, noise=noise))}
             if opt == "remat_flows":
@@ -2746,6 +2926,7 @@ def run_glow_reversible(name_limit: str):
                 res = step(ts, batch, noise=noise)
                 torch.cuda.synchronize()
             rec[opt]["step_launches"] = counts()["mc_gated_matmul"]
+            rec[opt]["step_backward_launches"] = counts()["mc_gated_matmul_backward"]
             rec[opt]["step_bits_per_dim"] = float(res["loss"])
             rec[opt]["step_skipped"] = float(res["skipped"])
             first[opt] = _grads_of(model)
@@ -2781,12 +2962,15 @@ def run_glow_reversible(name_limit: str):
                 "reversible_flows": 2 * GLOW_PER_FORWARD}
         for opt, n in want.items():
             if rec[opt]["launches_per_step"] != n or rec[opt].get("step_launches", n) != n \
-                    or rec[opt].get("step_skipped"):
+                    or rec[opt]["backward_launches_per_step"] != GLOW_PER_FORWARD \
+                    or rec[opt].get("step_backward_launches", GLOW_PER_FORWARD) \
+                    != GLOW_PER_FORWARD or rec[opt].get("step_skipped"):
                 bad.append(f"{name} {opt}: {rec[opt]}, want {n} launches a step")
         if not rec["reversible_flows"]["reconstruction_worst_rel_err"] <= GLOW_RECON_TOL:
             bad.append(f"{name}: a rebuilt flow input is off by "
                        f"{rec['reversible_flows']['reconstruction_worst_rel_err']}")
-        launches[name] = rec["reversible_flows"]["step_launches"]
+        launches[name] = {"forward": rec["reversible_flows"]["step_launches"],
+                          "backward": rec["reversible_flows"]["step_backward_launches"]}
         out[name] = dict(rec, reversible_vs_remat=cmp, stress_random_zero_convs=stress)
         log(f"glow reversible {name}:", json.dumps({"card": name_limit, "batch": 128, **out[name]}))
     if bad:
@@ -3163,6 +3347,18 @@ def run_preempt(name_limit: str, data_dir: str, out_dir: str):
     return rec
 
 
+PHASE_SECONDS: dict = {}
+
+
+def phase(name: str, fn, *args):
+    """``fn(*args)``, its wall seconds kept under ``name`` for the
+    ``phases:`` line."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -3245,40 +3441,43 @@ def main() -> int:
     check_vq_ema(1, vq_d, vq_k, seed=29)
     check_vq_ema(3000, 8, 16, seed=30, weighted=True)
     log(f"vq_ema: {ema_kernels()} kernel launches a call")  # before any path is counted
-    mc_head, mc_others = check_mc_gated_matmul_all(timers)
-    mc_glow = check_mc_gated_matmul_glow(timers)
+    mc_head, mc_others = phase("mc_gated_matmul checks", check_mc_gated_matmul_all, timers)
+    mc_glow, mc_glow_bwd = phase("mc_gated_matmul glow checks", check_mc_gated_matmul_glow,
+                                 timers)
 
-    serve_launches, _, g_then_d = run_slice(name_limit)
+    serve_launches, _, g_then_d = phase("slice", run_slice, name_limit)
     torch.backends.cudnn.allow_tf32 = True  # torch's default, as the bench script runs
-    train_launches, _, profile_train = run_train(name_limit)
-    fused_launches, _ = run_gan_fused(name_limit)
+    train_launches, _, profile_train = phase("train", run_train, name_limit)
+    fused_launches, _ = phase("gan fused g pass", run_gan_fused, name_limit)
     work = os.path.join(str(build.BUILD_DIR), "trainer_smoke")
     shutil.rmtree(work, ignore_errors=True)
     try:
-        trainer_launches, _, profile_trainer = run_trainer(name_limit, work)
+        trainer_launches, _, profile_trainer = phase("trainer", run_trainer, name_limit, work)
         data_dir = os.path.join(work, "data")  # the CIFAR10-shaped files, reused
-        vae_launches, _ = run_vae(name_limit, data_dir, os.path.join(work, "vae"))
-        vqvae_launches, _, profile_vqvae = run_vqvae(name_limit, data_dir,
-                                                     os.path.join(work, "vqvae"))
+        vae_launches, _ = phase("vae", run_vae, name_limit, data_dir, os.path.join(work, "vae"))
+        vqvae_launches, _, profile_vqvae = phase("vqvae", run_vqvae, name_limit, data_dir,
+                                                 os.path.join(work, "vqvae"))
         # on the codes of the VQ-VAE just trained (its _best in work/vqvae)
-        px_launches, _, profile_px = run_pixelcnn(name_limit, data_dir,
-                                                  os.path.join(work, "vqvae"))
-        glow_launches, _, profile_glow = run_glow(name_limit, data_dir,
-                                                  os.path.join(work, "glow"))
-        reversible_launches, _ = run_glow_reversible(name_limit)
-        remat_launches, _ = run_remat_single(name_limit)
-        run_preempt(name_limit, data_dir, os.path.join(work, "preempt"))
-        run_reference_import(name_limit)
+        px_launches, _, profile_px = phase("pixelcnn", run_pixelcnn, name_limit, data_dir,
+                                           os.path.join(work, "vqvae"))
+        glow_launches, _, profile_glow = phase("glow", run_glow, name_limit, data_dir,
+                                               os.path.join(work, "glow"))
+        reversible_launches, _ = phase("glow reversible", run_glow_reversible, name_limit)
+        remat_launches, _ = phase("remat single", run_remat_single, name_limit)
+        phase("preempt", run_preempt, name_limit, data_dir, os.path.join(work, "preempt"))
+        phase("reference import", run_reference_import, name_limit)
         # the trainer's MCGAN and InceptionV3 weights, before the folder goes
-        run_scores_cifar10(name_limit, data_dir, os.path.join(work, "output"))
+        phase("scores cifar10", run_scores_cifar10, name_limit, data_dir,
+              os.path.join(work, "output"))
         shutil.rmtree(work, ignore_errors=True)
-        cgan_launches, _, profile_cgan = run_cgan(name_limit)
-        real_launches, _, (base, out_dir) = run_real(name_limit, work)
-        wf_launches, _ = run_workflows(name_limit, base, out_dir)
-        real_vae_launches, _ = run_real_vae(name_limit, base, out_dir)
-        real_px_launches, _ = run_real_pixelcnn(name_limit, base, out_dir)
-        real_glow_launches, _ = run_real_glow(name_limit, base, out_dir)
-        scores_launches, _ = run_scores_real(name_limit, base, out_dir)
+        cgan_launches, _, profile_cgan = phase("cgan", run_cgan, name_limit)
+        real_launches, _, (base, out_dir) = phase("real", run_real, name_limit, work)
+        wf_launches, _ = phase("workflows", run_workflows, name_limit, base, out_dir)
+        real_vae_launches, _ = phase("real vae", run_real_vae, name_limit, base, out_dir)
+        real_px_launches, _ = phase("real pixelcnn", run_real_pixelcnn, name_limit, base,
+                                    out_dir)
+        real_glow_launches, _ = phase("real glow", run_real_glow, name_limit, base, out_dir)
+        scores_launches, _ = phase("scores real", run_scores_real, name_limit, base, out_dir)
         # last, so that no timed run follows a profiler session
         rec = profile_cgan(args.profile or os.path.join(work, "profile"))
         log("cgan profile:", json.dumps({k: rec[k] for k in (
@@ -3391,9 +3590,39 @@ def main() -> int:
             **{f"real_{m}_{path}": c[path]["mc_gated_matmul"]
                for m, c in real_glow_launches.items() for path in ("trainer", "workflows")},
             "scores_real": scores_launches["mc_gated_matmul"],
-            **{f"glow_{m}_step_reversible": n for m, n in reversible_launches.items()}},
-        "other_shapes": [{k: r[k] for k in vq_shapes + ("variant", "roofline_share")}
-                         for r in mc_others + mc_glow]})
+            **{f"glow_{m}_step_reversible": n["forward"]
+               for m, n in reversible_launches.items()}},
+        "other_shapes": [{k: r[k] for k in vq_shapes + ("variant", "roofline_share")
+                          if k in r} for r in mc_others + mc_glow]})
+    bwd = mc_glow_bwd[0]  # Glow level 1
+    kernels.append({
+        "name": "mc_gated_matmul_backward", "route": "cuda",
+        "source": "mcgm_tpu_torch/csrc/mc_gated_matmul.cu",
+        "replaces": "mcgm_tpu/ops/pallas_kernels.py:91 at 0303c43 (_mc_bwd, mc_gated_matmul's "
+                    "VJP, left to XLA beside the Pallas kernel: the recompute, the epilogue's "
+                    "gradient and the dalpha / dbeta sums)",
+        "launches": glow_launches["mcglow"]["step_backward"],
+        "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
+        "library_ms": bwd["library_ms"],
+        "library": "bf16 bmm recompute, f32 mask / sums / scale, bf16 bmm for dx and einsum for "
+                   "dw (a PyTorch chain; no single call computes it)",
+        "shape": bwd["shape"], "case": bwd["case"], "wrapper_ms": bwd["wrapper_ms"],
+        "roofline_share": bwd["roofline_share"], "variant": bwd["variant"],
+        "errors": bwd["errors"], "parts_ms": bwd["parts_ms"],
+        "parts_bound_ms": bwd["parts_bound_ms"],
+        "launches_by_path": {
+            **{f"glow_{m}_step": c["step_backward"] for m, c in glow_launches.items()},
+            **{f"glow_{m}_trainer": c["trainer"]["mc_gated_matmul_backward"]
+               for m, c in glow_launches.items()},
+            **{f"glow_{m}_step_reversible": n["backward"]
+               for m, n in reversible_launches.items()},
+            **{f"real_{m}_trainer": c["trainer"]["mc_gated_matmul_backward"]
+               for m, c in real_glow_launches.items()}},
+        "other_shapes": [{k: r[k] for k in vq_shapes + ("variant", "roofline_share",
+                                                        "parts_ms")}
+                         for r in mc_glow_bwd[1:]]})
+    log("phases:", json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()}))
     log(f"wall: {time.perf_counter() - t_start:.1f} s for the whole script")
     log(name_limit)
     log(json.dumps({"kernels": kernels}))

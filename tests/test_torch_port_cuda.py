@@ -465,28 +465,36 @@ def _mc_inputs(dev, B, K, N, P, modes=10, dtype=torch.bfloat16, seed=0, soft=Fal
 
 @pytest.mark.parametrize("B,K,N,P,relu,dtype,gate,variant", [
     (1000, 128, 512, None, True, torch.bfloat16, True, "rows"),   # the sampler's head
-    (512, 128, 128, 64, False, torch.bfloat16, True, "samples"),  # an eval batch's residual
+    (512, 128, 128, 64, False, torch.bfloat16, True, "wide"),     # an eval batch's residual
     (17, 128, 512, 64, True, torch.float32, False, "generic"),    # the digits' batch, f32
-    (512, 128, 512, 64, True, torch.bfloat16, True, "samples"),   # an eval batch's head
-    (17, 64, 200, 64, True, torch.bfloat16, True, "samples"),     # ragged: K 64, N 200
+    (512, 128, 512, 64, True, torch.bfloat16, True, "wide"),      # an eval batch's head
+    (17, 64, 200, 64, True, torch.bfloat16, True, "wide"),        # ragged: K 64, N 200
     (1, 128, 512, None, True, torch.bfloat16, True, "rows"),      # M = 1
     (48, 96, 200, 16, False, torch.bfloat16, True, "generic"),    # K 96, P 16
     (128, 128, 100, None, False, torch.bfloat16, True, "generic"),  # P = 1, N % 8 != 0
-    # the re-forward's chunk of 1,000 grids, and 1,200: a block of the samples
-    # kernel takes more than one batch of codes (8 samples) at the head and
-    # at a residual
-    (1000, 128, 512, 64, True, torch.bfloat16, True, "samples"),
-    (1000, 128, 128, 64, False, torch.bfloat16, True, "samples"),
-    (1200, 128, 128, 64, False, torch.bfloat16, True, "samples"),
-    (1200, 64, 200, 64, True, torch.bfloat16, True, "samples"),
+    # the re-forward's chunk of 1,000 grids, and 1,200: many tiles per block
+    # of the wide kernel, each spanning two samples
+    (1000, 128, 512, 64, True, torch.bfloat16, True, "wide"),
+    (1000, 128, 128, 64, False, torch.bfloat16, True, "wide"),
+    (1200, 128, 128, 64, False, torch.bfloat16, True, "wide"),
+    (1200, 64, 200, 64, True, torch.bfloat16, True, "wide"),
     # Glow's coupling nets at B=128 (levels 1-3: P = 256, 64, 16; K = N =
-    # 512), MCGlow's with the gate and CGlow's without
-    (128, 512, 512, 256, True, torch.bfloat16, True, "generic"),
-    (128, 512, 512, 64, True, torch.bfloat16, True, "generic"),
-    (128, 512, 512, 16, True, torch.bfloat16, True, "generic"),
-    (128, 512, 512, 256, True, torch.bfloat16, False, "generic"),
-    (128, 512, 512, 64, True, torch.bfloat16, False, "generic"),
-    (128, 512, 512, 16, True, torch.bfloat16, False, "generic"),
+    # 512), MCGlow's with the gate and CGlow's without: the wide kernel
+    (128, 512, 512, 256, True, torch.bfloat16, True, "wide"),
+    (128, 512, 512, 64, True, torch.bfloat16, True, "wide"),
+    (128, 512, 512, 16, True, torch.bfloat16, True, "wide"),
+    (128, 512, 512, 256, True, torch.bfloat16, False, "wide"),
+    (128, 512, 512, 64, True, torch.bfloat16, False, "wide"),
+    (128, 512, 512, 16, True, torch.bfloat16, False, "wide"),
+    # the digits' last batch of 17 at levels 1 and 3, an eval batch of 512
+    (17, 512, 512, 256, True, torch.bfloat16, True, "wide"),
+    (512, 512, 512, 256, True, torch.bfloat16, True, "wide"),
+    (17, 512, 512, 16, True, torch.bfloat16, True, "wide"),
+    # the wide kernel's other shapes: K below 512, N not a multiple of 128 (a
+    # slice of 128 channels part empty), P 32 and 192 (64-position tiles)
+    (48, 128, 192, 32, True, torch.bfloat16, True, "wide"),
+    (40, 256, 320, 192, True, torch.bfloat16, True, "wide"),
+    (33, 64, 64, 16, False, torch.bfloat16, True, "wide"),
 ])
 def test_mc_gated_matmul_matches_plain(dev, B, K, N, P, relu, dtype, gate, variant):
     """The kernel against its plain version (f32 sums, one rounding to the
@@ -547,12 +555,68 @@ def test_mc_gated_matmul_affine_gradient_matches_plain(dev, gate):
         assert (a - b).abs().max() <= (TOL if i < 2 else 1e-4) * b.abs().max(), i
 
 
+def _glow_backward_case(dev, B, P, gate, K=512, N=512):
+    """The gated 1x1 at Glow's K = N = 512 (or the K and N given; bf16,
+    ReLU) and an upstream gradient that is 0 where the pre-activation is
+    within ``1e-3 * max`` of 0 (there the plain version's f32 sums, in
+    another order, may take the ReLU's mask the other way)."""
+    x, w, alpha, beta, ind, cb = _mc_inputs(dev, B, K, N, P, seed=B + P)
+    if not gate:
+        ind = cb = None
+    pre = torch.einsum("nk,bkp->bnp", w.float(), x.float()) * alpha[:, None] + beta[:, None]
+    g = torch.Generator(device=dev).manual_seed(P)
+    r = torch.randn((B, N, P), generator=g, device=dev) * (pre.abs() > 1e-3 * pre.abs().max())
+    return (x, w, alpha, beta, ind, cb, True), r.to(torch.bfloat16)
+
+
+# Glow's three levels at B=128, then the wide kernel's other shapes: K below
+# 512, N not a multiple of 128 (200 not even of 64), P 32, 192 and the
+# PixelCNN's 64
+BACKWARD_SHAPES = [(128, 512, 512, 256), (128, 512, 512, 64), (128, 512, 512, 16),
+                   (48, 128, 192, 32), (40, 256, 320, 192), (33, 64, 64, 16), (17, 64, 200, 64)]
+
+
+@pytest.mark.parametrize("B,K,N,P", BACKWARD_SHAPES)
+@pytest.mark.parametrize("gate", [True, False])
+def test_mc_gated_matmul_backward_kernel_matches_plain(dev, B, K, N, P, gate):
+    """The backward kernel and its two bf16 cuBLAS products
+    (``backward_variant`` names them, one kernel launch) against the plain
+    f32 backward: ``dx`` / ``dw`` within ``2e-2 * max``, ``dalpha`` /
+    ``dbeta`` (f32 sums in another order) within ``1e-4 * max``."""
+    from mcgm_tpu_torch.kernels import mc_gate
+
+    args, r = _glow_backward_case(dev, B, P, gate, K, N)
+    assert mc_gate.backward_variant(args[0], args[1]) == "wide"
+    before = mc_gate.mc_gated_matmul.backward_launches
+    got = mc_gate.mc_gated_matmul_backward(*args, r)
+    assert mc_gate.mc_gated_matmul.backward_launches == before + 1
+    want = mc_gate.mc_gated_matmul_backward_reference(
+        *args, r, mc_gate.mc_gated_matmul_reference(*args))
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape and a.dtype == b.dtype, i
+        assert (a.float() - b.float()).abs().max() <= (TOL if i < 2 else 1e-4) * b.abs().max(), i
+
+
+@pytest.mark.parametrize("B,K,N,P", [(128, 512, 512, 256), (17, 512, 512, 16),
+                                     (40, 256, 320, 192)])
+def test_mc_gated_matmul_backward_two_launches_are_bit_equal(dev, B, K, N, P):
+    """``gza``, ``dalpha`` and ``dbeta`` of two launches on the same inputs
+    are bit-equal: the per-block sums are added in a fixed order."""
+    from mcgm_tpu_torch.kernels import mc_gate
+
+    args, r = _glow_backward_case(dev, B, P, True, K, N)
+    first = mc_gate.mc_gated_matmul_backward_kernel(*args, r)
+    second = mc_gate.mc_gated_matmul_backward_kernel(*args, r)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 @pytest.mark.parametrize("backward", ["remat_flows", "reversible_flows"])
 def test_glow_step_kernel_path_matches_plain(dev, backward):
     """One full-width CIFAR10 MCGlow step (B=128, bf16 convs, ``remat_flows``
-    or the reversible backward) from one state, through the kernel (48
-    launches in the forward, 48 in the recompute or the reversible
-    backward's net runs) and through its plain version: the loss within ``1e-2 *
+    or the reversible backward) from one state, through the kernels (48
+    forward launches in the forward, 48 in the recompute or the reversible
+    backward's net runs, and 48 of the backward kernel) and through the
+    plain version: the loss within ``1e-2 *
     |plain|``, the gradients of the coupling nets' ActNorm after the 1x1
     (through the widened backward) within ``5e-2 * max|plain|``, and every
     parameter after the step within ``5e-2 * max|plain|`` of its tensor plus
@@ -591,8 +655,10 @@ def test_glow_step_kernel_path_matches_plain(dev, backward):
         ts.opt.register_step_pre_hook(lambda *_, m=model: seen.append(
             {n: p.grad.clone() for n, p in m.named_parameters() if "ActNorm_1" in n}))
         before = mc_gate.mc_gated_matmul.launches
+        before_bwd = mc_gate.mc_gated_matmul.backward_launches
         out = make_train_step(skip_nonfinite=True)(ts, batch, noise=noise)
         assert mc_gate.mc_gated_matmul.launches - before == (0 if plain else 96)
+        assert mc_gate.mc_gated_matmul.backward_launches - before_bwd == (0 if plain else 48)
         assert float(out["skipped"]) == 0.0
         outs[plain] = (float(out["loss"]), model.state_dict(), seen[0])
     (lk, sk, gk), (lp, sp, gp) = outs[False], outs[True]
