@@ -208,6 +208,25 @@ Phases, each of which exits non-zero on failure:
     models at the CIFAR10 width converted, loaded on the card and on the
     CPU, and one pass of each held to the other.
 
+26. export (after ``gan fused g pass:``; the Glow and PixelCNN artifacts
+    exported by a process started with the script): ``int8_quantize`` and
+    ``int8_conv`` against their plain versions at every shape the
+    CIFAR10-width GAN and VAE generators give them (Dense 128 / 160 -> 4,096,
+    the embedding 10 -> 32, the up2 convs into 8, 16 and 32 px, the 3x3 at
+    8, 16, 32 and 4 px, the 1x1 at 4, 8 and 16 px, the transposed convs
+    256 -> 128 -> 64 -> 3) at B = 1, 5 and 64, dynamic and static, bf16 out
+    (and f32 at B = 5): int8 values and scales equal, outputs within one
+    unit of the output dtype; MCGAN and CVAE exported as bf16, ``int8``
+    and ``int8_static`` (after ``calibrate_int8``) artifacts, MCGlow and
+    MCPixelCNN as bf16 ones, at the CIFAR10 width, each saved, loaded in a
+    process that imports only torch and ``kernels.ops`` and run at two
+    batch sizes: equal to the live sampler; the GAN and VAE artifacts'
+    images/s at ``SERVE_BATCH`` with the int8 kernels' launches per call
+    (counts zeroed just before the call) and max / mean |d| of the int8
+    images against the bf16 artifact's; ``int8_conv`` timed at five
+    shapes and ``int8_quantize`` at one, at ``SERVE_BATCH``, beside
+    im2col + ``torch._int_mm``, cuDNN's bf16 conv and the bound.
+
 The last lines are the script's wall time, the card's name and power limit
 as ``nvidia-smi`` gives them, one JSON object listing every kernel, and
 ``{"ok": true, "device": {...}}``. With ``--profile DIR`` one more G->D pass,
@@ -219,6 +238,7 @@ is no CPU path: without a card the script exits 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import copy
 import functools
@@ -248,15 +268,18 @@ from mcgm_tpu_torch.config import process_control
 from mcgm_tpu_torch.data.datasets import (_DIGITS, _MNIST_FILES, _pack_mnist_like,
                                           _save_processed, fetch_dataset)
 from mcgm_tpu_torch.evals.inception import InceptionV3, inception_feature_fn
+from mcgm_tpu_torch.io import export as io_export
 from mcgm_tpu_torch.io.checkpoint import to_numpy
 from mcgm_tpu_torch.io.images import read_png
 from mcgm_tpu_torch.io.jax_import import to_jax_inception
 from mcgm_tpu_torch.kernels import build
 from mcgm_tpu_torch.kernels import first_dblock as fd
+from mcgm_tpu_torch.kernels import int8 as kint8
 from mcgm_tpu_torch.kernels import mc_gate as kmc
 from mcgm_tpu_torch.kernels import vq as kvq
 from mcgm_tpu_torch.models import build_model
-from mcgm_tpu_torch.models.pixelcnn import sample_codes, sample_codes_incremental
+from mcgm_tpu_torch.models.pixelcnn import draw_uniforms, sample_codes, sample_codes_incremental
+from mcgm_tpu_torch.ops import quant
 from mcgm_tpu_torch.ops.layers import batch_stat_slices, fold_pool
 from mcgm_tpu_torch.report import learning_curve
 from mcgm_tpu_torch.report import process as report_process
@@ -279,7 +302,7 @@ TRAIN_TOL = 5e-2   # kernel path vs plain path, one train step: losses, first D 
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 NUM_MODE = 20
 DEV = torch.device("cuda")
-TENSOR_CORE_KERNELS = ("first_dblock", "mc_gated_matmul", "vq_assign")
+TENSOR_CORE_KERNELS = ("first_dblock", "mc_gated_matmul", "vq_assign", "int8_conv")
 INCEPTION_TOL = 1e-3  # max|card - cpu| <= INCEPTION_TOL * max|cpu|, both f32
 TRAINER_STEPS, TRAINER_EPOCHS = 20, 2
 TRAINER_IMAGES = {"train": 50_000, "test": 10_000}  # CIFAR10's splits
@@ -290,8 +313,10 @@ REAL_DIGITS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", 
 REAL_TRAIN = 1297  # the rest of the 1,797 digits is the test split
 # the real digits' depth is the first cut when the script nears its time
 # limit: the two GANs and the two Glows took ~90 s and ~140-165 s at 20 and
-# 10 epochs (H100 80GB HBM3, 700 W), now half of that
-CLASSIFIER_EPOCHS, REAL_GAN_EPOCHS = 10, 10
+# 10 epochs (H100 80GB HBM3, 700 W), now half of that; the GANs, VAEs and
+# PixelCNNs 10 -> 6 epochs and the CIFAR10 Glow trainer's steps 20 -> 10
+# since the export phase (a run on a slow host took 1,260 s at full depth)
+CLASSIFIER_EPOCHS, REAL_GAN_EPOCHS = 10, 6
 # VQ kernels: two codes whose float64 distances are closer than VQ_MARGIN *
 # (|x|^2 + max|e|^2) cannot be told apart by f32 sums in another order;
 # EMA sums of rows in another order within EMA_TOL * max|plain|
@@ -304,7 +329,7 @@ NEAR_TIE_FACTORS = (0.0, 1e-3, 0.03, 0.3, 1.0, 3.0, 10.0, 30.0)
 # (column_errors), at least VQ_CODES_EQUAL of the codes equal (a code may flip
 # where two are closer than the margin)
 VQ_STEP_TOL, VQ_CODES_EQUAL = 1e-2, 0.99
-VAE_STEPS, REAL_VAE_EPOCHS = 20, 10
+VAE_STEPS, REAL_VAE_EPOCHS = 20, 6
 # mc_gated_matmul with f32 operands against its plain version: f32 sums in
 # another order (bf16 operands: KERNEL_TOL)
 MC_TOL_F32 = 1e-5
@@ -316,7 +341,7 @@ SAMPLE_CHUNK, EXACT_GRIDS, EXACT_MARGIN = 1000, 16, 1e-3
 # the PixelCNN trainer on the CIFAR10-shaped files: its eval cut to the
 # first PIXELCNN_EVAL_BATCHES batches of the train split (the whole split is
 # 391 batches of ~25 ms of host time each)
-PIXELCNN_STEPS, PIXELCNN_EVAL_BATCHES, REAL_PIXELCNN_EPOCHS = 20, 40, 10
+PIXELCNN_STEPS, PIXELCNN_EVAL_BATCHES, REAL_PIXELCNN_EPOCHS = 20, 40, 6
 # Glow at the CIFAR10 width (hidden 512, K 16, L 3): its coupling nets' 1x1
 # at P = 256, 64, 16 positions (levels 1-3), 48 launches per forward; the
 # trainer cut to GLOW_STEPS steps per epoch, each evaluated on the first
@@ -324,7 +349,7 @@ PIXELCNN_STEPS, PIXELCNN_EVAL_BATCHES, REAL_PIXELCNN_EPOCHS = 20, 40, 10
 # GLOW_RECON_TOL of x (f32 flows, bf16 coupling nets run the same both ways);
 # generate timed over a sweep of GLOW_SWEEP in chunks of GLOW_CHUNK
 GLOW_POSITIONS, GLOW_PER_FORWARD = (256, 64, 16), 48
-GLOW_STEPS, GLOW_EVAL_BATCHES, REAL_GLOW_EPOCHS = 20, 8, 5
+GLOW_STEPS, GLOW_EVAL_BATCHES, REAL_GLOW_EPOCHS = 10, 8, 5
 GLOW_RECON_TOL, GLOW_SWEEP, GLOW_CHUNK = 1e-3, 400, 128
 # a Glow's reverse divides by s = sigmoid(log_s + 2), so a sample can
 # overflow to NaN (the reference's create filters them): at least this share
@@ -488,7 +513,7 @@ def sass_tensor_core_count(name: str) -> dict | None:
             return None
     sass = subprocess.run([tool, "-sass", str(build.library_path(name))], capture_output=True,
                           text=True, check=True, timeout=120).stdout
-    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HMMA", "HGMMA", "FFMA")}
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HMMA", "HGMMA", "IMMA", "FFMA")}
 
 
 # ------------------------------------------------------------------- slice
@@ -1389,10 +1414,10 @@ def kernel_device_times(timers: list, reps: int = 20) -> None:
 
     for rec, kname, kernel in timers:
         for attempt in range(3):  # the profiler has been seen to drop an event
-            before = counts()[kname]
+            before = {**counts(), **int8_counts()}[kname]
             kernel()
             torch.cuda.synchronize()
-            per_call = counts()[kname] - before
+            per_call = {**counts(), **int8_counts()}[kname] - before
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 for _ in range(reps):
                     kernel()
@@ -1402,9 +1427,13 @@ def kernel_device_times(timers: list, reps: int = 20) -> None:
             if per_call >= 1 and len(ev) == reps * per_call:
                 break
             log(f"{kname}: the profiler saw {len(ev)} launches of {reps} x {per_call}")
-        else:
-            raise SystemExit(f"{kname}: the profiler saw {len(ev)} launches of "
-                             f"{reps} x {per_call} in each of 3 passes")
+        else:  # CUPTI gave no device time: CUDA events, the host's gaps included
+            rec["ms"] = cuda_ms(kernel, reps)
+            rec["ms_source"] = "CUDA events (the profiler saw none of the kernel's launches)"
+            rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
+            log(f"{kname} device (CUDA events):", json.dumps(
+                {k: rec[k] for k in ("shape", "case", "ms", "ms_source", "bound_ms")}))
+            continue
         by_kernel = {}
         for e in ev:
             name = re.search(rf"{kname}_kernel\w*", e.name).group(0)
@@ -1450,12 +1479,18 @@ def zero_counts() -> None:
     """Every kernel's count to 0, just before a path is driven."""
     fd.first_dblock.launches = kvq.vq_assign.launches = kvq.vq_ema.launches = 0
     kmc.mc_gated_matmul.launches = kmc.mc_gated_matmul.backward_launches = 0
+    kint8.int8_conv.launches = kint8.int8_quantize.launches = 0
 
 
 def counts() -> dict:
     return {"first_dblock": fd.first_dblock.launches, **vq_launches(),
             "mc_gated_matmul": kmc.mc_gated_matmul.launches,
             "mc_gated_matmul_backward": kmc.mc_gated_matmul.backward_launches}
+
+
+def int8_counts() -> dict:
+    """The int8 serving kernels' counts (only the export phase runs them)."""
+    return {"int8_conv": kint8.int8_conv.launches, "int8_quantize": kint8.int8_quantize.launches}
 
 
 # ------------------------------------------------------------------ VAE
@@ -3347,6 +3382,395 @@ def run_preempt(name_limit: str, data_dir: str, out_dir: str):
     return rec
 
 
+# ------------------------------------------------------------------- export
+# int8_conv at the shapes the CIFAR10-width GAN and VAE generators give it
+# (the case, layout, H, W, C, N, kh, kw, pad, bias), each for these batches,
+# dynamic and static; the timed ones at the artifacts' batch
+INT8_CASES = (
+    ("Dense_0 128->4096", kint8.DIRECT, 1, 1, 128, 4096, 1, 1, 0, True),
+    ("CGAN / CVAE Dense_0 160->4096", kint8.DIRECT, 1, 1, 160, 4096, 1, 1, 0, True),
+    ("CGAN / CVAE embedding 10->32 (byte loads)", kint8.DIRECT, 1, 1, 10, 32, 1, 1, 0, False),
+    *((f"GAN Conv_0 up2 {h}->{2 * h}", kint8.UP2, h, h, 256, 256, 4, 4, 0, False)
+      for h in (4, 8, 16)),
+    *((f"GAN Conv_1 3x3 at {h}", kint8.DIRECT, h, h, 256, 256, 3, 3, 1, True)
+      for h in (8, 16, 32)),
+    *((f"GAN Conv_2 1x1 at {h}", kint8.DIRECT, h, h, 256, 256, 1, 1, 0, True)
+      for h in (4, 8, 16)),
+    ("VAE res block 3x3 at 4", kint8.DIRECT, 4, 4, 256, 256, 3, 3, 1, True),
+    ("VAE ConvTranspose 256->128 4->8", kint8.UP2, 4, 4, 256, 128, 4, 4, 0, True),
+    ("VAE ConvTranspose 128->64 8->16", kint8.UP2, 8, 8, 128, 64, 4, 4, 0, True),
+    ("VAE ConvTranspose 64->3 16->32", kint8.UP2, 16, 16, 64, 3, 4, 4, 0, True),
+)
+INT8_BATCHES = (1, 5, 64)
+INT8_TIMED = ("GAN Conv_1 3x3 at 32", "GAN Conv_0 up2 16->32", "GAN Conv_2 1x1 at 16",
+              "Dense_0 128->4096", "VAE ConvTranspose 64->3 16->32")
+PEAK_INT8_OPS = 1979e12
+SERVE_BATCH, SERVE_CALLS = 1000, 5
+EXPORTED = (("mcgan", None), ("mcgan", "int8"), ("mcgan", "int8_static"), ("cvae", None),
+            ("cvae", "int8"), ("cvae", "int8_static"), ("mcglow", None), ("mcpixelcnn", None))
+# exported by a process of their own, started with the script (their traces
+# take minutes of host time: Glow's 48 flows, the PixelCNN's two loop bodies)
+EXPORT_BACKGROUND = ("mcglow", "mcpixelcnn")
+ROUNDTRIP_BATCHES = (3, 8)
+EXPORT_WORK = os.path.join(str(build.BUILD_DIR), "export_smoke")
+
+
+def int8_inputs(case, B, seed, static):
+    """bf16 NHWC activations, the static scale's amax (0.7 of the largest
+    |x|: the top is clipped) or None, weights quantized per channel and a
+    bias (or None)."""
+    _, layout, H, W, C, N, kh, kw, _, has_bias = case
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    x = torch.randn((B, H, W, C), generator=g, device=DEV).to(torch.bfloat16)
+    K = (16 if layout == kint8.UP2 else kh * kw) * C
+    w, wscale = kint8.quantize_sym(torch.randn((N, K), generator=g, device=DEV) / math.sqrt(K),
+                                   (1,))
+    bias = 0.1 * torch.randn(N, generator=g, device=DEV) if has_bias else None
+    amax = (0.7 * x.float().abs().max()).reshape(()) if static else None
+    return x, amax, w, wscale.reshape(-1), bias
+
+
+def _units(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance of two same-dtype tensors in units of their last
+    place (bit patterns; 0 is bit-equal)."""
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return int((a.view(view).long() - b.view(view).long()).abs().max())
+
+
+def check_int8(case, B, seed, static, out_dtype=torch.bfloat16) -> dict:
+    """``int8_quantize`` and ``int8_conv`` against their plain versions: the
+    int8 values and scales equal, the outputs within one unit of the output
+    dtype (the int32 sums are exact on both sides)."""
+    name, layout, H, W, C, N, kh, kw, pad, _ = case
+    x, amax, w, wscale, bias = int8_inputs(case, B, seed, static)
+    q, xs = kint8.int8_quantize(x, amax)
+    qr, xsr = kint8.int8_quantize_reference(x, amax)
+    args = (q, w, wscale, xs, bias, layout, kh, kw, pad, out_dtype)
+    y = kint8.int8_conv(*args)
+    yr = kint8.int8_conv_reference(*args)
+    torch.cuda.synchronize()
+    rec = {"case": name, "B": B, "mode": "static" if static else "dynamic",
+           "out": str(out_dtype).split(".")[-1], "shape": [B, H, W, C, N],
+           "quantize_equal": bool(torch.equal(q, qr) and torch.equal(xs, xsr)),
+           "units": _units(y, yr), "max_abs_err": float((y.float() - yr.float()).abs().max()),
+           "clipped": float((q.abs() == 127).float().mean())}
+    if not rec["quantize_equal"] or rec["units"] > 1 or tuple(y.shape) != tuple(yr.shape):
+        raise SystemExit(f"int8 kernels disagree with their plain versions: {json.dumps(rec)}")
+    return rec
+
+
+def int8_conv_bound(case, B) -> tuple[float, str, float]:
+    """``(bound_ms, bound_by, ops)``: x, w, the scales and the bf16 output
+    once, at 3.35 TB/s, against 2 ops per MAC (padding taps included) at
+    the int8 dense peak."""
+    _, layout, H, W, C, N, kh, kw, pad, has_bias = case
+    Ho, Wo = kint8._out_hw(layout, H, W, kh, kw, pad)
+    taps = 4 if layout == kint8.UP2 else kh * kw  # per output pixel
+    K = (16 if layout == kint8.UP2 else kh * kw) * C
+    nbytes = B * H * W * C + N * K + 4 * (N + B) + 2 * B * Ho * Wo * N + (2 * N if has_bias
+                                                                          else 0)
+    ops = 2.0 * B * Ho * Wo * N * taps * C
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_INT8_OPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", ops
+
+
+def int8_library(q, w, wscale, xscale, bias, layout, kh, kw, pad, out_dtype):
+    """The yardstick: im2col (``F.unfold``'s columns, tap-major) and
+    ``torch._int_mm`` (cuBLASLt s8 x s8 -> s32) per phase, then the same
+    dequantization; N padded to a multiple of 8 for ``_int_mm``."""
+    B, H, W, C = q.shape
+    N = w.shape[0]
+    Np = -(-N // 8) * 8
+    wp = F.pad(w, (0, 0, 0, Np - N))
+    scale = wscale[None, :] * xscale[:, None]
+
+    def mm(cols, wk, h, w_):
+        acc = torch._int_mm(cols.reshape(B * h * w_, -1), wk.t())[:, :N]
+        y = (acc.float().reshape(B, h * w_, N) * scale[:, None, :]).to(out_dtype)
+        return (y if bias is None else y + bias.to(out_dtype)).reshape(B, h, w_, N)
+
+    if layout == kint8.DIRECT:
+        Ho, Wo = kint8._out_hw(layout, H, W, kh, kw, pad)
+        xp = F.pad(q, (0, 0, pad, pad, pad, pad))
+        return mm(torch.stack([xp[:, dy:dy + Ho, dx:dx + Wo] for dy in range(kh)
+                               for dx in range(kw)], 3), wp, Ho, Wo)
+    xp = F.pad(q, (0, 0, 1, 1, 1, 1))
+    out = torch.empty((B, 2 * H, 2 * W, N), dtype=out_dtype, device=q.device)
+    for phase in range(4):
+        a, b = divmod(phase, 2)
+        cols = torch.stack([xp[:, du + a:du + a + H, dv + b:dv + b + W] for du in (0, 1)
+                            for dv in (0, 1)], 3)
+        out[:, a::2, b::2] = mm(cols, wp[:, phase * 4 * C:(phase + 1) * 4 * C], H, W)
+    return out
+
+
+def _cudnn_bf16(case, x):
+    """cuDNN's bf16 conv of the same shape (the full-precision artifact's
+    op): conv2d, or conv_transpose2d k4 s2 p1 for the up2 layout."""
+    _, layout, H, W, C, N, kh, kw, pad, has_bias = case
+    xc = x.permute(0, 3, 1, 2)  # channels_last NCHW view
+    bias = torch.zeros(N, device=DEV, dtype=torch.bfloat16) if has_bias else None
+    if layout == kint8.UP2:
+        wt = torch.randn((C, N, 4, 4), device=DEV, dtype=torch.bfloat16)
+        return lambda: F.conv_transpose2d(xc, wt, bias, 2, 1)
+    wt = torch.randn((N, C, kh, kw), device=DEV, dtype=torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    return lambda: F.conv2d(xc, wt, bias, 1, pad)
+
+
+def time_int8(case, timers: list, seed: int) -> dict:
+    """``int8_conv`` at ``SERVE_BATCH`` in dynamic mode: the wrapper, the
+    plain version (f64 sums), ``_int_mm`` + im2col and cuDNN's bf16 conv,
+    CUDA events; the kernel's own device time later, from the profiler.
+    Also ``int8_quantize`` at the same input (queued once, for the first
+    case)."""
+    B = SERVE_BATCH
+    x, _, w, wscale, bias = int8_inputs(case, B, seed, static=False)
+    q, xs = kint8.int8_quantize(x)
+    args = (q, w, wscale, xs, bias) + case[1:2] + case[6:9] + (torch.bfloat16,)
+    bound, bound_by, ops = int8_conv_bound(case, B)
+    rec = {"case": case[0], "shape": [B, *case[2:6]], "bound_ms": bound, "bound_by": bound_by,
+           "ops": ops}
+    y = kint8.int8_conv(*args)
+    rec["max_abs_err"] = float((y.float() - kint8.int8_conv_reference(*args).float()).abs().max())
+    rec["wrapper_ms"] = cuda_ms(lambda: kint8.int8_conv(*args), 20)
+    rec["plain_ms"] = cuda_ms(lambda: kint8.int8_conv_reference(*args), 2)
+    rec["library_ms"] = cuda_ms(lambda: int8_library(*args), 5)
+    rec["library_bf16_ms"] = cuda_ms(_cudnn_bf16(case, x), 20)
+    rec["library_int_mm_err"] = float((int8_library(*args).float() - y.float()).abs().max())
+    timers.append((rec, "int8_conv", lambda: kint8.int8_conv(*args)))
+    log("int8_conv timed:", json.dumps(rec))
+    return rec
+
+
+def time_int8_quantize(timers: list) -> dict:
+    """``int8_quantize`` (dynamic) on the largest activation the GAN
+    artifact quantizes at its batch: Conv_1's input at 32 px."""
+    x = torch.randn((SERVE_BATCH, 32, 32, 256), device=DEV).to(torch.bfloat16)
+    nbytes = x.numel() * 3 + 4 * SERVE_BATCH  # x once, q once, the scales
+    rec = {"case": "GAN Conv_1 input at 32, dynamic", "shape": list(x.shape),
+           "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes", "library_ms": None}
+    q, xs = kint8.int8_quantize(x)
+    qr, xsr = kint8.int8_quantize_reference(x)
+    rec["max_abs_err"] = float((q.int() - qr.int()).abs().max())
+    rec["wrapper_ms"] = cuda_ms(lambda: kint8.int8_quantize(x), 20)
+    rec["plain_ms"] = cuda_ms(lambda: kint8.int8_quantize_reference(x), 5)
+    timers.append((rec, "int8_quantize", lambda: kint8.int8_quantize(x)))
+    log("int8_quantize timed:", json.dumps(rec))
+    return rec
+
+
+def export_cfg(name: str) -> dict:
+    """The CIFAR10 configuration of ``name`` with 10 modes (a PixelCNN's over
+    the VQ-VAE's 8 x 8 grid of 512 codes)."""
+    cfg = apply_family_overrides(process_control({
+        "data_name": "CIFAR10", "model_name": name, "ae_name": "vqvae",
+        "control": {"controller_rate": "0.5"}}))
+    cfg["classes_size"] = 10
+    return cfg
+
+
+def export_samplers(names=("mcgan", "cvae", "mcglow", "mcpixelcnn")) -> dict:
+    """Random-weight samplers at the CIFAR10 width, built on the card (the
+    same weights in every process: each model draws them from its seed)."""
+    out = {}
+    for name in names:
+        cfg = export_cfg(name)
+        ae = (build_model(dict(vqvae_cfg(), classes_size=10)) if name == "mcpixelcnn"
+              else None)
+        out[name] = Sampler(cfg, build_model(cfg), ae)
+    return out
+
+
+def _artifact_path(key: str) -> str:
+    return os.path.join(EXPORT_WORK, key.replace(":", ".") + ".pt2")
+
+
+def export_artifact(s: Sampler, key: str, quantize=None) -> dict:
+    """Export ``s``, save the artifact where the serving process finds it."""
+    t = time.perf_counter()
+    blob = io_export.export_sampler(s, quantize=quantize)
+    io_export.save_artifact(blob, _artifact_path(key))
+    return {"export_s": time.perf_counter() - t, "bytes": len(blob)}
+
+
+EXPORTER_SCRIPT = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+out = {f"{name}:bf16": cs.export_artifact(s, f"{name}:bf16")
+       for name, s in cs.export_samplers(json.loads(sys.argv[2])).items()}
+print(json.dumps(out))
+"""
+
+
+def start_background_exports() -> subprocess.Popen:
+    """The ``EXPORT_BACKGROUND`` artifacts, exported by a process started
+    here (at the script's start); :func:`run_export` collects them."""
+    shutil.rmtree(EXPORT_WORK, ignore_errors=True)
+    os.makedirs(EXPORT_WORK)
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen([sys.executable, "-c", EXPORTER_SCRIPT, root,
+                             json.dumps(list(EXPORT_BACKGROUND))], cwd=root,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())  # a run that fails first
+    return proc
+
+
+def finish_background_exports(proc: subprocess.Popen) -> dict:
+    out, err = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise SystemExit(f"export: the background exporter failed:\n{err[-4000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def roundtrip_inputs(s: Sampler, n: int, seed: int):
+    """``(C, z)`` for ``n`` requests, the PixelCNN's ``z`` its uniforms, and
+    the live sampler's images from the same draws."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    C = torch.arange(n, device=DEV) % 10
+    if s.ae_model is not None:
+        z = draw_uniforms(n, (8, 8), s.model.input_size, g)
+        live = s.sample(C.cpu(), torch.Generator(device=DEV).manual_seed(seed))
+    else:
+        z = s.sample_z(n, g)
+        live = s.sample_with_z(C.cpu(), z)
+    return C, z, live
+
+
+SERVE_SCRIPT = r"""
+import json, sys, time
+import torch
+import mcgm_tpu_torch.kernels.ops  # the custom ops an artifact calls
+paths, inputs, out = json.loads(sys.argv[1]), sys.argv[2], sys.argv[3]
+data = torch.load(inputs)
+res, load_s = {}, {}
+for key, path in paths.items():
+    t0 = time.perf_counter()
+    program = torch.export.load(path).module()
+    load_s[key] = time.perf_counter() - t0
+    with torch.no_grad():
+        res[key] = [program(C, z) for C, z in data[key]]
+torch.save(res, out)
+own = sorted(m for m in sys.modules if m.startswith(("mcgm_tpu", "jax", "flax")))
+print(json.dumps({"load_s": load_s, "modules": own}))
+"""
+
+
+def run_export(name_limit: str, timers: list, background: subprocess.Popen):
+    """The int8 kernels against their plain versions, the serving
+    artifacts' round trips through a process that imports only torch and
+    ``kernels.ops``, their images/s at ``SERVE_BATCH``, and the int8
+    kernels' times. ``background`` exports the ``EXPORT_BACKGROUND`` ones."""
+    t0 = time.perf_counter()
+    checks = [check_int8(case, B, seed=100 + i * 7 + B, static=static)
+              for i, case in enumerate(INT8_CASES) for B in INT8_BATCHES
+              for static in (False, True)]
+    checks += [check_int8(case, 5, seed=300 + i, static=False, out_dtype=torch.float32)
+               for i, case in enumerate(INT8_CASES)]
+    log("export int8 checks:", json.dumps({
+        "cases": len(checks), "bit_equal": sum(r["units"] == 0 for r in checks),
+        "max_units": max(r["units"] for r in checks),
+        "max_abs_err": max(r["max_abs_err"] for r in checks),
+        "seconds": time.perf_counter() - t0}))
+    for r in checks:
+        if r["B"] == 64 and r["mode"] == "dynamic":
+            log("  int8 check:", json.dumps(r))
+
+    samplers = export_samplers()
+    exported, rt_inputs, live = {}, {}, {}
+    for name, quantize in EXPORTED:
+        key = f"{name}:{quantize or 'bf16'}"
+        s = samplers[name]
+        if quantize == "int8_static":
+            t = time.perf_counter()
+            s = io_export.calibrate_int8(s, torch.Generator(device=DEV).manual_seed(7))
+            calibrate_s = time.perf_counter() - t
+        if name not in EXPORT_BACKGROUND:
+            exported[key] = export_artifact(s, key, quantize)
+            if quantize == "int8_static":
+                exported[key]["calibrate_s"] = calibrate_s
+        rt_inputs[key], live[key] = [], []
+        for n in ROUNDTRIP_BATCHES:
+            C, z, ref = roundtrip_inputs(samplers[name], n, seed=n)
+            if quantize:
+                with torch.no_grad(), quant.int8_serving(io_export.QUANTIZE[quantize]):
+                    ref = s.model.generate(C, z)
+            rt_inputs[key].append((C, z))
+            live[key].append(ref)
+    t = time.perf_counter()
+    exported.update(finish_background_exports(background))
+    log("export artifacts:", json.dumps({"waited_for_background_s": time.perf_counter() - t,
+                                         **exported}))
+    paths = {key: _artifact_path(key) for key in live}
+
+    # the round trips in a process of their own, beside the timing here
+    torch.save(rt_inputs, os.path.join(EXPORT_WORK, "inputs.pt"))
+    t_serve = time.perf_counter()
+    server = subprocess.Popen([sys.executable, "-c", SERVE_SCRIPT, json.dumps(paths),
+                               os.path.join(EXPORT_WORK, "inputs.pt"),
+                               os.path.join(EXPORT_WORK, "outputs.pt")],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    # images/s of the GAN and VAE artifacts at SERVE_BATCH, loaded here
+    throughput, launches, outputs, bad = {}, {}, {}, []
+    for key in [k for k in paths if k.split(":")[0] not in EXPORT_BACKGROUND]:
+        fn = io_export.load_artifact(paths[key])
+        s = samplers[key.split(":")[0]]
+        g = torch.Generator(device=DEV).manual_seed(11)
+        C = torch.randint(0, 10, (SERVE_BATCH,), generator=g, device=DEV)
+        z = torch.randn((SERVE_BATCH, s.model.latent_size), generator=g, device=DEV)
+        fn(C, z)  # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        outputs[key] = fn(C, z)  # the counted call
+        torch.cuda.synchronize()
+        launches[key] = int8_counts()
+        secs = [_timed(lambda: fn(C, z))[0] for _ in range(SERVE_CALLS)]
+        throughput[key] = {"images_per_s": SERVE_BATCH / statistics.median(secs),
+                           "ms_per_call": 1e3 * statistics.median(secs),
+                           "launches_per_call": launches[key]}
+        base = outputs.get(key.split(":")[0] + ":bf16")
+        if base is not None and key != key.split(":")[0] + ":bf16":
+            d = (outputs[key] - base).abs()
+            throughput[key].update(max_abs_vs_bf16=float(d.max()), mean_abs_vs_bf16=float(
+                d.mean()))
+        if key.endswith("bf16") and any(launches[key].values()):
+            bad.append(f"{key} launched int8 kernels: {launches[key]}")
+        if not key.endswith("bf16") and not all(launches[key].values()):
+            bad.append(f"{key} did not launch both int8 kernels: {launches[key]}")
+    log(f"export throughput ({name_limit}):", json.dumps(throughput))
+
+    timed = [time_int8(case, timers, seed=500 + i) for i, case in enumerate(INT8_CASES)
+             if case[0] in INT8_TIMED]
+    quantize_rec = time_int8_quantize(timers)
+    out, err = server.communicate(timeout=600)
+    if server.returncode != 0:
+        raise SystemExit(f"export: the serving process failed:\n{err[-4000:]}")
+    served = json.loads(out.strip().splitlines()[-1])
+    outs = torch.load(os.path.join(EXPORT_WORK, "outputs.pt"))
+    roundtrips = {}
+    stray = [m for m in served["modules"] if m != "mcgm_tpu_torch"
+             and not m.startswith(("mcgm_tpu_torch.kernels", "mcgm_tpu_torch.ops"))]
+    if stray:
+        bad.append(f"the serving process imported {stray}")
+    for key in paths:
+        errs = [float((o.float() - ref.float()).abs().max()) for o, ref in
+                zip(outs[key], live[key])]
+        roundtrips[key] = {"max_abs_err": errs, "shapes": [list(o.shape) for o in outs[key]],
+                           "load_s": served["load_s"][key],
+                           "finite": all(bool(torch.isfinite(o).all()) for o in outs[key])}
+        if any(e != 0.0 for e in errs) or not roundtrips[key]["finite"]:
+            bad.append(f"{key}: the served images differ from the live sampler's by {errs}")
+    log("export round trips:", json.dumps({"serving_process_s": time.perf_counter() - t_serve,
+                                           "modules": served["modules"], **roundtrips}))
+    shutil.rmtree(EXPORT_WORK, ignore_errors=True)
+    if bad:
+        raise SystemExit("export failed:\n" + "\n".join(bad))
+    return launches, timed, quantize_rec, checks
+
+
 PHASE_SECONDS: dict = {}
 
 
@@ -3373,6 +3797,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     name_limit = card_name_and_limit()
     log(f"card: {name_limit}")
+    exporter = start_background_exports()  # collected by the export phase
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
@@ -3390,7 +3815,7 @@ def main() -> int:
         # first_dblock, mc_gated_matmul (bf16) and vq_assign (TF32) are
         # designed for the tensor cores; vq_ema adds rows on the CUDA cores
         if kname in TENSOR_CORE_KERNELS and sass is not None \
-                and sass["HMMA"] + sass["HGMMA"] == 0:
+                and sass["HMMA"] + sass["HGMMA"] + sass["IMMA"] == 0:
             raise SystemExit(f"{kname}: no tensor-core instruction in its SASS")
 
     full = check_first_dblock((128, 128, 128, 3, 64), seed=0, timed=True)
@@ -3449,6 +3874,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = True  # torch's default, as the bench script runs
     train_launches, _, profile_train = phase("train", run_train, name_limit)
     fused_launches, _ = phase("gan fused g pass", run_gan_fused, name_limit)
+    # after the background exporter has had the time it needs
+    export_launches, int8_timed, int8_quantize_rec, int8_checks = phase(
+        "export", run_export, name_limit, timers, exporter)
     work = os.path.join(str(build.BUILD_DIR), "trainer_smoke")
     shutil.rmtree(work, ignore_errors=True)
     try:
@@ -3622,6 +4050,39 @@ def main() -> int:
         "other_shapes": [{k: r[k] for k in vq_shapes + ("variant", "roofline_share",
                                                         "parts_ms")}
                          for r in mc_glow_bwd[1:]]})
+    conv = int8_timed[0]  # GAN Conv_1 3x3 at 32 px, the artifacts' batch
+    int8_keys = ("shape", "case", "ms", "wrapper_ms", "bound_ms", "bound_by", "plain_ms",
+                 "library_ms", "library_bf16_ms", "max_abs_err", "roofline_share")
+    int8_paths = {f"export_{k.replace(':', '_')}": v for k, v in export_launches.items()}
+    kernels.append({
+        "name": "int8_conv", "route": "cuda", "source": "mcgm_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "mcgm_tpu/ops/layers.py:113 _int8_conv / :135 _int8_apply (XLA s8 x s8 -> "
+                    "s32 convs; no Pallas source)",
+        "launches": export_launches["mcgan:int8"]["int8_conv"],
+        "max_abs_err": conv["max_abs_err"], "ms": conv["ms"], "plain_ms": conv["plain_ms"],
+        "bound_ms": conv["bound_ms"], "bound_by": conv["bound_by"],
+        "library_ms": conv["library_ms"],
+        "library": "im2col + torch._int_mm (cuBLASLt s8 x s8 -> s32) and the same "
+                   "dequantization; library_bf16_ms: cuDNN's bf16 conv of the same shape",
+        "library_bf16_ms": conv["library_bf16_ms"], "shape": conv["shape"],
+        "case": conv["case"], "wrapper_ms": conv["wrapper_ms"],
+        "roofline_share": conv["roofline_share"],
+        "checks": {"cases": len(int8_checks),
+                   "bit_equal": sum(r["units"] == 0 for r in int8_checks),
+                   "max_units": max(r["units"] for r in int8_checks)},
+        "launches_by_path": {k: v["int8_conv"] for k, v in int8_paths.items()},
+        "other_shapes": [{k: r[k] for k in int8_keys} for r in int8_timed[1:]]})
+    qrec = int8_quantize_rec
+    kernels.append({
+        "name": "int8_quantize", "route": "cuda", "source": "mcgm_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "mcgm_tpu/ops/layers.py:104 _quantize_sym on activations, in "
+                    ":113 _int8_conv / :135 _int8_apply (XLA; no Pallas source)",
+        "launches": export_launches["mcgan:int8"]["int8_quantize"],
+        **{k: qrec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "shape", "case", "wrapper_ms",
+                                "roofline_share")},
+        **({k: qrec[k] for k in ("ms_by_kernel", "span_ms") if k in qrec}),
+        "launches_by_path": {k: v["int8_quantize"] for k, v in int8_paths.items()}})
     log("phases:", json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()}))
     log(f"wall: {time.perf_counter() - t_start:.1f} s for the whole script")
     log(name_limit)

@@ -16,7 +16,9 @@ variable's path maps to a key by rule:
   ``weight`` as it is; BatchNorm ``scale`` -> ``weight``,
   ``mean``/``var`` -> ``running_mean``/``running_var``; spectral ``u``,
   ``codebook`` and the quantizer's ``vq_stats`` (``embedding``,
-  ``cluster_size``, ``embedding_mean``) keep their names.
+  ``cluster_size``, ``embedding_mean``) keep their names; the int8
+  calibration's ``quant_stats/<module path>/act_amax`` is the module's
+  ``act_amax`` buffer.
 
 The inverse, :func:`to_jax_gan_variables`, walks the port's modules, so a
 checkpoint the port writes holds the JAX package's variable tree and either
@@ -49,8 +51,9 @@ _LEAF = {
     ("vq_stats", "embedding"): "embedding",
     ("vq_stats", "cluster_size"): "cluster_size",
     ("vq_stats", "embedding_mean"): "embedding_mean",
+    ("quant_stats", "act_amax"): "act_amax",
 }
-_COLLECTIONS = ("params", "batch_stats", "spectral", "codebook", "vq_stats")
+_COLLECTIONS = ("params", "batch_stats", "spectral", "codebook", "vq_stats", "quant_stats")
 
 
 def _walk(tree, path=()):
@@ -145,7 +148,8 @@ def jax_leaves(module: nn.Module):
                              "running_var": ("batch_stats", "var")}[leaf]
             else:
                 coll, key = {"weight": ("params", "kernel"), "bias": ("params", "bias"),
-                             "u": ("spectral", "u"), "codebook": ("codebook", "codebook")}[leaf]
+                             "u": ("spectral", "u"), "codebook": ("codebook", "codebook"),
+                             "act_amax": ("quant_stats", "act_amax")}[leaf]
             yield (f"{name}.{leaf}" if name else leaf,
                    (coll, *path, *(("bn",) if bn else ()), key), t)
 

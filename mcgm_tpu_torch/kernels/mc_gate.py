@@ -21,7 +21,10 @@ and P = 1 this is the TPU kernel's function ``(x @ w.T) * (indicator @
 codebook)``.
 
 On a CUDA tensor it launches ``csrc/mc_gated_matmul.cu`` or raises; on a CPU
-tensor it computes :func:`mc_gated_matmul_reference`. The ``.cu`` holds three
+tensor it computes :func:`mc_gated_matmul_reference`. Under ``torch.export``
+it is the custom op ``mcgm::mc_gated_matmul`` (``kernels/ops.py``, the same
+two implementations), so an exported Glow or PixelCNN generate path keeps the
+kernel. The ``.cu`` holds three
 hand kernels, one launched per call, which its entry point picks by the
 shape (``rows``: bf16, P = 1, 64 x 64 tiles on ``wgmma``; ``wide``: bf16, K
 a multiple of 64 up to 512, P 16, 32 or a multiple of 64, TMA and ``wgmma``
@@ -315,6 +318,10 @@ def mc_gated_matmul(x, w, alpha=None, beta=None, indicator=None, codebook=None,
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in (x, w, alpha, beta)):
         return _MCGatedMatmul.apply(x, w, alpha, beta, indicator, codebook, relu)
+    if torch.compiler.is_exporting():  # a launch cannot be traced; the custom op can
+        from . import ops  # noqa: F401  (registers torch.ops.mcgm)
+
+        return torch.ops.mcgm.mc_gated_matmul(x, w, alpha, beta, indicator, codebook, relu)
     return _forward(x, w, alpha, beta, indicator, codebook, relu)  # no graph to record
 
 

@@ -228,12 +228,30 @@ def _device(model) -> torch.device:
     return next(model.parameters()).device
 
 
-def _draw(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    """``argmax(logits + Gumbel)`` from ``[B, K]`` uniforms of ``generator``
-    (kept above the f32 ``tiny``, as ``jax.random.gumbel`` keeps them)."""
-    u = torch.rand(logits.shape, generator=generator, device=generator.device)
+def _uniforms(shape, generator: torch.Generator) -> torch.Tensor:
+    return torch.rand(shape, generator=generator, device=generator.device)
+
+
+def _draw(logits: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """``argmax(logits + Gumbel)`` from uniforms ``u [B, K]`` (kept above the
+    f32 ``tiny``, as ``jax.random.gumbel`` keeps them)."""
     u = u.to(logits.device).clamp_min(torch.finfo(torch.float32).tiny)
     return (logits.float() - torch.log(-torch.log(u))).argmax(-1)
+
+
+def draw_uniforms(n: int, grid_hw, num_embedding: int, generator: torch.Generator):
+    """The uniforms ``[n, H * W, K]`` that the samplers draw from
+    ``generator`` for ``n`` grids, position by position in raster order
+    (one ``[n, K]`` draw each): handed to :func:`sample_codes_incremental`
+    as ``uniforms``, they give the codes that ``generator`` would."""
+    H, W = grid_hw
+    return torch.stack([_uniforms((n, num_embedding), generator) for _ in range(H * W)], 1)
+
+
+def _labels(C, dev) -> torch.Tensor:
+    if isinstance(C, torch.Tensor):
+        return C.to(dev, torch.long)
+    return torch.as_tensor(np.asarray(C), dtype=torch.long, device=dev)
 
 
 @torch.no_grad()
@@ -242,41 +260,20 @@ def sample_codes(model, C, generator: torch.Generator, grid_hw=(8, 8)) -> torch.
     ``int32 [B, H, W]`` on the model's device."""
     H, W = grid_hw
     dev = _device(model)
-    C = torch.as_tensor(np.asarray(C), dtype=torch.long, device=dev)
+    C = _labels(C, dev)
     img = torch.zeros((len(C), H, W), dtype=torch.long, device=dev)
     for t in range(H * W):
         i, j = divmod(t, W)
         logits = model({"img": img, "label": C}, train=False)["logits"][:, i, j]
-        img[:, i, j] = _draw(logits, generator)
+        img[:, i, j] = _draw(logits, _uniforms(logits.shape, generator))
     return img.int()
 
 
-@torch.no_grad()
-def sample_codes_incremental(model, C, generator: torch.Generator, grid_hw=(8, 8),
-                             return_logits: bool = False):
-    """The cached-activation raster sampler: per row, every layer's
-    vertical stream for all columns at once (it sees only earlier rows);
-    per position, each layer's horizontal products over the cached
-    left-neighbour windows, the residual 1x1 and the head's first 1x1
-    through ``mc_gated_matmul`` (16 launches per position at 15 layers).
-    The same codes as :func:`sample_codes` from the same generator, and
-    per-position logits equal to a full forward on the sampled codes.
-
-    Buffers follow the JAX sampler: the embedded codes with 3 rows of top
-    padding (layer 0's mask-A kernel reaches 3 rows up), each layer's
-    vertical output with 1 (mask B reaches 1 row up), and per row the
-    horizontal streams left-padded by 3 columns. Products run in the
-    model's compute dtype with f32 sums; biases, BatchNorm and gates in f32.
-    Returns codes ``int32 [B, H, W]`` (and the f32 logits ``[B, H, W, K]``).
-    """
-    H, W = grid_hw
-    dev, dt = _device(model), model.compute_dtype
-    L, h = model.num_layer, model.hidden_size
-    C = torch.as_tensor(np.asarray(C), dtype=torch.long, device=dev)
-    B = len(C)
-    ind = one_hot(C, model.num_mode)
-    fn = mc_gated_matmul_reference if model.plain else mc_gated_matmul
-
+def _sampler_params(model, ind) -> tuple[list, dict]:
+    """Per layer and for the head, the weights the incremental sampler
+    multiplies by (products in the compute dtype), biases, BatchNorm
+    affines and gates (f32)."""
+    dt = model.compute_dtype
     lay = []
     for layer in model.layers():
         vk = layer.vert_stack.masked_weight()      # [2h, h, kh, k]
@@ -303,59 +300,176 @@ def sample_codes_incremental(model, C, generator: torch.Generator, grid_hw=(8, 8
         lay.append(d)
     head = model.head
     h_alpha, h_beta = bn_epilogue(head.BatchNorm_0, head.Conv_0.bias)
-    h_k1 = head.Conv_0.weight[:, :, 0, 0].to(dt)
-    h_cb = head.MultimodalController_0.codebook if head.mc else None
-    h_k2 = head.Conv_1.weight[:, :, 0, 0].t().to(dt)
-    h_b2 = head.Conv_1.bias
-    table = model.embedding.weight.to(dt)
+    top = {"alpha": h_alpha, "beta": h_beta, "k1": head.Conv_0.weight[:, :, 0, 0].to(dt),
+           "cb": head.MultimodalController_0.codebook if head.mc else None,
+           "k2": head.Conv_1.weight[:, :, 0, 0].t().to(dt), "b2": head.Conv_1.bias,
+           "table": model.embedding.weight.to(dt)}
+    return lay, top
 
-    def gate(x2h, w, b, code):  # x2h [B, 2h(, W)] f32
-        shape = (1, -1) + (1,) * (x2h.dim() - 2)
-        xg, yg = x2h.chunk(2, dim=1)
-        out = (xg * w.reshape(shape) + b.reshape(shape)).relu() * torch.sigmoid(yg)
-        return out if code is None else out * code.reshape(code.shape + (1,) * (out.dim() - 2))
 
-    img = torch.zeros((B, H, W), dtype=torch.long, device=dev)
+def _gate(x2h, w, b, code):  # x2h [B, 2h(, W)] f32
+    shape = (1, -1) + (1,) * (x2h.dim() - 2)
+    xg, yg = x2h.chunk(2, dim=1)
+    out = (xg * w.reshape(shape) + b.reshape(shape)).relu() * torch.sigmoid(yg)
+    return out if code is None else out * code.reshape(code.shape + (1,) * (out.dim() - 2))
+
+
+# How the sampler's steps read and write its buffers: ``take(t, dim, start,
+# n)`` is t's n slices from start along dim, ``put(t, dim, at, value)`` t
+# with slice ``at`` replaced by value, returned. Live they are views and
+# in-place copies at Python ints; under torch.export, index ops at 0-d
+# index tensors that return new tensors (a loop body may not mutate what it
+# carries).
+def _take_view(t, dim, start, n):
+    return t.narrow(dim, start, n)
+
+
+def _put_inplace(t, dim, at, value):
+    t.select(dim, at).copy_(value)
+    return t
+
+
+def _take_index(t, dim, start, n):
+    return t.index_select(dim, start + torch.arange(n, device=t.device))
+
+
+def _put_index(t, dim, at, value):
+    return t.index_copy(dim, at.reshape(1), value.unsqueeze(dim))
+
+
+def _vertical_row(lay, dt, i, emb_pad, outv, take, put):
+    """Row ``i``'s vertical streams, every layer and column: ``(hvert, outv)``
+    with ``hvert[l] [B, 2h, W]`` f32 and ``outv[l]`` holding layer ``l``'s
+    gated output at its row ``i + 1``."""
+    hvert, outv = [], list(outv)
+    for l, d in enumerate(lay):
+        x, pw = (take(emb_pad, 2, i, 3), 3) if l == 0 else (take(outv[l - 1], 2, i, 2), 1)
+        hv = F.conv2d(x, d["vk"], None, 1, (0, pw))[:, :, 0].float() + d["vb"][:, None]
+        hvert.append(hv)
+        gin = hv if d["cond"] is None else hv + d["cond"][:, :, None]
+        outv[l] = put(outv[l], 2, i + 1, _gate(gin, d["gv_w"], d["gv_b"], d["code_v"]).to(dt))
+    return hvert, outv
+
+
+def _position(lay, top, fn, ind, dt, j, hvert, hrow, take, put):
+    """Column ``j`` of the current row through every layer's horizontal
+    stream and the head: ``(logits [B, K] f32, hrow)``; ``hrow[0]`` holds the
+    row's embedded codes, ``hrow[l + 1]`` layer ``l``'s output, each ``[B, W
+    + 3, h]`` left-padded by 3 columns."""
+    hrow = list(hrow)
+    B = hrow[0].shape[0]
+    for l, d in enumerate(lay):
+        win = take(hrow[0], 1, j, 3) if l == 0 else take(hrow[l], 1, j + 2, 2)
+        hh = (win.reshape(B, -1) @ d["hk"]).float() + d["hb"]
+        v2h = (take(hvert[l], 2, j, 1)[:, :, 0].to(dt) @ d["v2k"]).float() + d["v2b"]
+        gin = v2h + hh if d["cond"] is None else v2h + hh + d["cond"]
+        oh = _gate(gin, d["gh_w"], d["gh_b"], d["code_h"]).to(dt)
+        r = fn(oh, d["rk"], d["r_alpha"], d["r_beta"], None if d["cb_r"] is None else ind,
+               d["cb_r"])
+        if l > 0:
+            r = r + take(hrow[l], 1, j + 3, 1)[:, 0]
+        hrow[l + 1] = put(hrow[l + 1], 1, j + 3, r)
+    z = fn(take(hrow[len(lay)], 1, j + 3, 1)[:, 0].contiguous(), top["k1"], top["alpha"],
+           top["beta"], None if top["cb"] is None else ind, top["cb"], True)
+    return (z @ top["k2"]).float() + top["b2"], hrow
+
+
+def sample_codes_incremental(model, C, generator: torch.Generator | None, grid_hw=(8, 8),
+                             return_logits: bool = False, uniforms: torch.Tensor | None = None):
+    """The cached-activation raster sampler: per row, every layer's
+    vertical stream for all columns at once (it sees only earlier rows);
+    per position, each layer's horizontal products over the cached
+    left-neighbour windows, the residual 1x1 and the head's first 1x1
+    through ``mc_gated_matmul`` (16 launches per position at 15 layers).
+    The same codes as :func:`sample_codes` from the same generator, and
+    per-position logits equal to a full forward on the sampled codes.
+
+    Buffers follow the JAX sampler: the embedded codes with 3 rows of top
+    padding (layer 0's mask-A kernel reaches 3 rows up), each layer's
+    vertical output with 1 (mask B reaches 1 row up), and per row the
+    horizontal streams left-padded by 3 columns. Products run in the
+    model's compute dtype with f32 sums; biases, BatchNorm and gates in f32.
+    Returns codes ``int32 [B, H, W]`` (and the f32 logits ``[B, H, W, K]``).
+    ``uniforms`` ``[B, H * W, K]`` (:func:`draw_uniforms`) replace the draws
+    from ``generator``: the serving artifact takes them as an input.
+
+    Rows and columns are steps of one body (``_vertical_row``,
+    ``_position``). Under ``torch.export`` the two loops are
+    ``while_loop``s, so the exported program holds one body, not ``H * W``
+    copies of it, and the body replaces its buffers instead of writing into
+    them; live it writes in place.
+    """
+    if torch.is_grad_enabled():  # an export runs with gradients off: no grad-mode node
+        with torch.no_grad():
+            return sample_codes_incremental(model, C, generator, grid_hw, return_logits,
+                                            uniforms)
+    H, W = grid_hw
+    dev, dt = _device(model), model.compute_dtype
+    L, h = model.num_layer, model.hidden_size
+    C = _labels(C, dev)
+    B = C.shape[0]
+    ind = one_hot(C, model.num_mode)
+    fn = mc_gated_matmul_reference if model.plain else mc_gated_matmul
+    lay, top = _sampler_params(model, ind)
+    img = torch.zeros((B, H * W), dtype=torch.long, device=dev)
     emb_pad = torch.zeros((B, h, H + 3, W), dtype=dt, device=dev)
-    outv = torch.zeros((L, B, h, H + 1, W), dtype=dt, device=dev)
+    outv = [torch.zeros((B, h, H + 1, W), dtype=dt, device=dev) for _ in range(L)]
+
+    def new_hrow(like):  # sized from a buffer: the batch is symbolic under export
+        return [like.new_zeros((like.shape[0], W + 3, h)) for _ in range(L + 1)]
+
+    def place(i, j, logits, u, hrow, img, emb_pad, put):
+        """Draw position ``(i, j)``'s code and write it to the buffers."""
+        sample = _draw(logits, u)
+        ev = top["table"][sample]
+        img = put(img, 1, i * W + j, sample)
+        emb_pad = put(emb_pad.flatten(2), 2, (i + 3) * W + j, ev).unflatten(2, (H + 3, W))
+        hrow = [put(hrow[0], 1, j + 3, ev)] + hrow[1:]
+        return hrow, img, emb_pad
+
+    if torch.compiler.is_exporting():
+        from torch._higher_order_ops import while_loop
+
+        if uniforms is None:
+            raise ValueError("an exported sampler takes its uniforms as an input")
+
+        take, put = _take_index, _put_index
+
+        def row(i, img, emb_pad, *outv):
+            hvert, outv = _vertical_row(lay, dt, i, emb_pad, outv, take, put)
+
+            def col(j, img, emb_pad, *hrow):
+                logits, hrow = _position(lay, top, fn, ind, dt, j, hvert, hrow, take, put)
+                u = take(uniforms, 1, i * W + j, 1)[:, 0]
+                hrow, img, emb_pad = place(i, j, logits, u, hrow, img, emb_pad, put)
+                return (j + 1, img, emb_pad, *hrow)
+
+            zero = torch.zeros((), dtype=torch.long, device=dev)
+            _, img, emb_pad, *_ = while_loop(cols_left, col, (zero, img, emb_pad, *new_hrow(emb_pad)))
+            return (i + 1, img, emb_pad, *outv)
+
+        def cols_left(j, *_):
+            return j < W
+
+        def rows_left(i, *_):
+            return i < H
+
+        zero = torch.zeros((), dtype=torch.long, device=dev)
+        _, img, *_ = while_loop(rows_left, row, (zero, img, emb_pad, *outv))
+        return img.reshape(B, H, W).int()
+
+    take, put = _take_view, _put_inplace
     logits_acc = (torch.zeros((B, H, W, model.input_size), device=dev)
                   if return_logits else None)
     for i in range(H):
-        # the vertical rows: all layers, all columns of row i
-        hvert = []
-        for l, d in enumerate(lay):
-            if l == 0:
-                x, pw = emb_pad[:, :, i:i + 3], 3
-            else:
-                x, pw = outv[l - 1][:, :, i:i + 2], 1
-            hv = F.conv2d(x, d["vk"], None, 1, (0, pw))[:, :, 0].float() + d["vb"][:, None]
-            hvert.append(hv)  # [B, 2h, W]
-            gin = hv if d["cond"] is None else hv + d["cond"][:, :, None]
-            outv[l][:, :, i + 1] = gate(gin, d["gv_w"], d["gv_b"], d["code_v"]).to(dt)
-        # the horizontal streams, position by position; hrow[0] holds the
-        # row's embedded codes, hrow[l + 1] layer l's output
-        hrow = torch.zeros((L + 1, B, W + 3, h), dtype=dt, device=dev)
+        hvert, outv = _vertical_row(lay, dt, i, emb_pad, outv, take, put)
+        hrow = new_hrow(emb_pad)
         for j in range(W):
-            for l, d in enumerate(lay):
-                win = hrow[0, :, j:j + 3] if l == 0 else hrow[l, :, j + 2:j + 4]
-                hh = (win.reshape(B, -1) @ d["hk"]).float() + d["hb"]
-                v2h = (hvert[l][:, :, j].to(dt) @ d["v2k"]).float() + d["v2b"]
-                gin = v2h + hh if d["cond"] is None else v2h + hh + d["cond"]
-                oh = gate(gin, d["gh_w"], d["gh_b"], d["code_h"]).to(dt)
-                r = fn(oh, d["rk"], d["r_alpha"], d["r_beta"],
-                       None if d["cb_r"] is None else ind, d["cb_r"])
-                if l > 0:
-                    r = r + hrow[l, :, j + 3]
-                hrow[l + 1, :, j + 3] = r
-            z = fn(hrow[L, :, j + 3].contiguous(), h_k1, h_alpha, h_beta,
-                   None if h_cb is None else ind, h_cb, True)
-            logits = (z @ h_k2).float() + h_b2
-            sample = _draw(logits, generator)
-            img[:, i, j] = sample
-            ev = table[sample]
-            emb_pad[:, :, i + 3, j] = ev
-            hrow[0, :, j + 3] = ev
+            logits, hrow = _position(lay, top, fn, ind, dt, j, hvert, hrow, take, put)
+            u = (_uniforms(logits.shape, generator) if uniforms is None
+                 else uniforms[:, i * W + j])
+            hrow, img, emb_pad = place(i, j, logits, u, hrow, img, emb_pad, put)
             if logits_acc is not None:
                 logits_acc[:, i, j] = logits
-    img = img.int()
+    img = img.reshape(B, H, W).int()
     return (img, logits_acc) if return_logits else img

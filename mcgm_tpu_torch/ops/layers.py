@@ -24,6 +24,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels import int8 as kint8
+from . import quant
+
 BN_MOMENTUM = 0.9  # flax convention: running = m * running + (1 - m) * batch
 BN_EPS = 1e-5
 
@@ -138,7 +141,7 @@ def _bias(b, x):
     return None if b is None else b.to(x.dtype)
 
 
-class Conv(nn.Module):
+class Conv(quant.Int8Site):
     """2D conv, xavier kernel, torch-uniform bias.
 
     ``kernel_size`` is an int or ``(kh, kw)``; ``padding`` an int or
@@ -147,7 +150,8 @@ class Conv(nn.Module):
     constant buffer the weight is multiplied by at apply: the weight itself
     is stored unmasked, as in the JAX package, so masked taps get no
     gradient and the import in either direction is the identity. The mask
-    is not part of the ``state_dict``.
+    is not part of the ``state_dict``. Under ``quant.int8_serving`` a conv
+    of stride 1 runs int8 (``quant.int8_apply``).
     """
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size=3, stride: int = 1,
@@ -167,7 +171,17 @@ class Conv(nn.Module):
     def masked_weight(self) -> torch.Tensor:
         return self.weight if self.kernel_mask is None else self.weight * self.kernel_mask
 
+    def int8_spec(self):
+        if self.stride != 1 or not isinstance(self.padding, int):
+            raise NotImplementedError("int8 serving: a Conv of stride 1 and one padding only")
+        kh, kw = self.weight.shape[2:]
+        return kint8.DIRECT, kint8.pack_direct(self.masked_weight()), kh, kw, self.padding
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quantized and quant.int8_mode():
+            y = quant.int8_apply(self, x, self.bias)
+            if y is not None:
+                return y
         pad = self.padding
         if not isinstance(pad, int):
             (top, bottom), (left, right) = pad
@@ -190,30 +204,46 @@ class Embed(nn.Module):
 
 
 class UpsampledConv(Conv):
-    """``conv3x3(pad 1)(nearest_up2(x))``; the parameters of a 3x3 ``Conv``."""
+    """``conv3x3(pad 1)(nearest_up2(x))``; the parameters of a 3x3 ``Conv``.
+    Int8 serving quantizes the composite 4x4 kernel of the JAX package's
+    ``lhs_dilation`` form (``quant.up4_kernel``) and runs it on ``x`` itself."""
 
     def __init__(self, in_ch: int, out_ch: int, bias: bool = True, generator=None):
         super().__init__(in_ch, out_ch, 3, 1, 1, bias, generator)
 
+    def int8_spec(self):
+        w4 = quant.up4_kernel(self.weight).permute(2, 3, 1, 0)  # HWIO
+        return kint8.UP2, kint8.pack_up2(w4), 4, 4, 0
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(upsample_nearest(x, 2))
+        if quant.int8_mode():
+            y = quant.int8_apply(self, x, self.bias)
+            if y is not None:
+                return y
+        return F.conv2d(upsample_nearest(x, 2), self.weight.to(x.dtype), _bias(self.bias, x),
+                        1, 1)
 
 
 class ConvS2D(Conv):
     """The generators' image head: conv3x3 (pad 1) with bias. The JAX
-    package lowers it space-to-depth for TPU lane fill; the math is this."""
+    package lowers it space-to-depth for TPU lane fill; the math is this.
+    It has no int8 branch: the image head stays full precision."""
+
+    quantized = False
 
     def __init__(self, in_ch: int, out_ch: int, generator=None):
         super().__init__(in_ch, out_ch, 3, 1, 1, True, generator)
 
 
-class ConvTranspose(nn.Module):
+class ConvTranspose(quant.Int8Site):
     """torch ``ConvTranspose2d(k=4, s=2, p=1)``: output side ``(H-1)s - 2p + k``.
 
     The weight is torch's ``[in, out, k, k]``; the JAX package stores the
     kernel HWIO ``[k, k, in, out]`` and flips it for ``lax.conv_transpose``,
     so the port's weight is that kernel transposed (2, 3, 0, 1), unflipped.
-    Kernel and bias take torch's uniform init over ``in * k * k``."""
+    Kernel and bias take torch's uniform init over ``in * k * k``. Int8
+    serving (k 4, s 2, p 1) quantizes the flipped kernel of that lhs-dilated
+    conv, per output channel (torch's axis 1)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 4, stride: int = 2,
                  padding: int = 1, generator=None):
@@ -224,19 +254,36 @@ class ConvTranspose(nn.Module):
                                                  out_ch * k * k, generator))
         self.bias = nn.Parameter(torch_bias(out_ch, in_ch * k * k, generator))
 
+    def int8_spec(self):
+        if (self.weight.shape[2], self.stride, self.padding) != (4, 2, 1):
+            raise NotImplementedError("int8 serving: a ConvTranspose of k 4, s 2, p 1 only")
+        w4 = self.weight.flip(2, 3).permute(2, 3, 0, 1)  # the flipped HWIO kernel
+        return kint8.UP2, kint8.pack_up2(w4), 4, 4, 0
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if quant.int8_mode():
+            y = quant.int8_apply(self, x, self.bias)
+            if y is not None:
+                return y
         return F.conv_transpose2d(x, self.weight.to(x.dtype), _bias(self.bias, x),
                                   self.stride, self.padding)
 
 
-class Dense(nn.Module):
+class Dense(quant.Int8Site):
     def __init__(self, in_f: int, out_f: int, bias: bool = True, generator=None,
                  kernel_init=xavier_uniform):
         super().__init__()
         self.weight = nn.Parameter(kernel_init((out_f, in_f), in_f, out_f, generator))
         self.bias = nn.Parameter(torch_bias(out_f, in_f, generator)) if bias else None
 
+    def int8_spec(self):
+        return kint8.DIRECT, self.weight, 1, 1, 0  # a 1x1 conv on a 1x1 image
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if quant.int8_mode():
+            y = quant.int8_apply(self, x, self.bias)
+            if y is not None:
+                return y
         return F.linear(x, self.weight.to(x.dtype), _bias(self.bias, x))
 
 

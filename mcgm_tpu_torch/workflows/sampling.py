@@ -23,6 +23,7 @@ from ..io.checkpoint import load_model_dict
 from ..io.jax_import import from_jax_variables
 from ..models import build_model
 from ..models.pixelcnn import sample_codes_incremental
+from ..ops.quant import act_amax_state
 from ..utils import ckpt_path
 
 
@@ -44,8 +45,11 @@ class Sampler:
         ``sampling_module`` (a GAN's generator, a VAE's decoder): created
         modes are generated, never discriminated or encoded (and the
         reference's torch stream leaves CGAN's D embedding at the trained
-        mode count). A Glow or a PixelCNN samples with all of itself."""
+        mode count). A Glow or a PixelCNN samples with all of itself. The
+        calibrated int8 scales (``act_amax``) of ``self`` stay where
+        ``state`` holds none."""
         cfg = self.cfg
+        state = {**act_amax_state(self.model), **state}
         if classes_size is None or classes_size == cfg["classes_size"]:
             model = copy.deepcopy(self.model)
             model.load_state_dict(state)

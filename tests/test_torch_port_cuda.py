@@ -692,3 +692,95 @@ def test_pixelcnn_eval_forward_kernel_path_matches_plain(dev, name):
         assert mc_gate.mc_gated_matmul.launches == before + 16
         want = model.use_plain_kernels()(batch)["logits"].float()
     assert (got - want).abs().max() <= TOL * want.abs().max()
+
+
+# ------------------------------------------------------------- int8 serving
+@pytest.mark.parametrize("static", [False, True])
+def test_int8_conv_matches_plain(dev, static):
+    """``int8_quantize`` and ``int8_conv`` at every shape the CIFAR10-width
+    GAN and VAE generators give them (``chip_smoke.INT8_CASES``), B = 1, 5
+    and 64, bf16 out: int8 values and scales equal to the plain version's,
+    outputs within one unit of bf16 (the int32 sums are exact)."""
+    import chip_smoke as cs
+
+    for i, case in enumerate(cs.INT8_CASES):
+        for B in cs.INT8_BATCHES:
+            try:
+                rec = cs.check_int8(case, B, seed=i * 7 + B, static=static)
+            except SystemExit as e:
+                pytest.fail(str(e))
+            assert rec["quantize_equal"] and rec["units"] <= 1, rec
+
+
+def test_int8_conv_f32_out_and_odd_shapes_match_plain(dev):
+    """f32 out, odd channel counts and sizes (byte loads where C % 16 != 0),
+    a 3x3 at pad 0 and a tile edge in every direction."""
+    import chip_smoke as cs
+    from mcgm_tpu_torch.kernels import int8 as ki
+
+    cases = [("f32 3x3", ki.DIRECT, 7, 9, 48, 40, 3, 3, 1, True),
+             ("3x3 pad 0", ki.DIRECT, 6, 5, 32, 24, 3, 3, 0, False),
+             ("C 24 up2", ki.UP2, 5, 3, 24, 9, 4, 4, 0, True),
+             ("C 3 1x1", ki.DIRECT, 9, 9, 3, 130, 1, 1, 0, True)]
+    for i, case in enumerate(cases):
+        for dtype in (torch.float32, torch.bfloat16):
+            rec = cs.check_int8(case, 3, seed=40 + i, static=i % 2 == 1, out_dtype=dtype)
+            assert rec["quantize_equal"] and rec["units"] <= 1, rec
+
+
+def test_int8_quantize_matches_plain(dev):
+    """Per-example abs-max over more than one block's chunk, B = 1, f32 and
+    bf16 in, a static scale that clips, an all-zero example (scale 1e-8 /
+    127)."""
+    from mcgm_tpu_torch.kernels import int8 as ki
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    for shape in [(1, 32, 32, 256), (7, 9, 11, 13), (3, 4096)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn(shape, generator=g, device=dev) * 3).to(dtype)
+            x[-1] = 0 if shape[0] > 1 else x[-1]
+            for amax in (None, torch.tensor(1.5, device=dev)):
+                q, s = ki.int8_quantize(x, amax)
+                qr, sr = ki.int8_quantize_reference(x, amax)
+                assert torch.equal(q, qr) and torch.equal(s, sr), (shape, dtype, amax)
+
+
+def test_int8_kernels_refuse_what_they_do_not_take(dev):
+    from mcgm_tpu_torch.kernels import int8 as ki
+
+    x = torch.zeros((2, 4, 4, 16), dtype=torch.int8, device=dev)
+    w = torch.zeros((8, 9 * 16), dtype=torch.int8, device=dev)
+    ones = torch.ones(8, device=dev), torch.ones(2, device=dev)
+    with pytest.raises(ValueError):  # a 1x1's packing for a 3x3
+        ki.int8_conv(x, w[:, :16], *ones, None, ki.DIRECT, 3, 3, 1, torch.bfloat16)
+    with pytest.raises(ValueError):  # f16 out
+        ki.int8_conv(x, w, *ones, None, ki.DIRECT, 3, 3, 1, torch.float16)
+    with pytest.raises(ValueError):  # an int8 input to the quantizer
+        ki.int8_quantize(x)
+
+
+def test_int8_artifact_runs_the_kernels(dev):
+    """The CIFAR10-width MCGAN's int8 artifact on the card: every quantized
+    site through ``int8_conv`` (Dense_0 and 3 x 3 convs: 10 launches a
+    call, 20 of ``int8_quantize``), equal to the live int8 apply."""
+    from mcgm_tpu_torch.config import process_control
+    from mcgm_tpu_torch.io import export as ex
+    from mcgm_tpu_torch.kernels import int8 as ki
+    from mcgm_tpu_torch.models import build_model
+    from mcgm_tpu_torch.ops import quant
+    from mcgm_tpu_torch.workflows.sampling import Sampler
+
+    cfg = process_control({"data_name": "CIFAR10", "model_name": "mcgan",
+                           "control": {"controller_rate": "0.5"}})
+    cfg["classes_size"] = 10
+    s = Sampler(cfg, build_model(cfg, dev))
+    fn = ex.load_serving_fn(ex.export_sampler(s, quantize="int8"))
+    C = torch.arange(7, device=dev) % 10
+    z = torch.randn((7, 128), generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    before = ki.int8_conv.launches, ki.int8_quantize.launches
+    got = fn(C, z)
+    torch.cuda.synchronize()
+    assert (ki.int8_conv.launches - before[0], ki.int8_quantize.launches - before[1]) == (10, 20)
+    with torch.no_grad(), quant.int8_serving("dynamic"):
+        want = s.model.generate(C, z)
+    assert torch.equal(got, want)
