@@ -208,8 +208,8 @@ Phases, each of which exits non-zero on failure:
     models at the CIFAR10 width converted, loaded on the card and on the
     CPU, and one pass of each held to the other.
 
-26. export (after ``gan fused g pass:``; the Glow and PixelCNN artifacts
-    exported by a process started with the script): ``int8_quantize`` and
+26. export (after ``vae:``; the Glow and PixelCNN artifacts exported by a
+    process started with the script, niced, tracing on the host): ``int8_quantize`` and
     ``int8_conv`` against their plain versions at every shape the
     CIFAR10-width GAN and VAE generators give them (Dense 128 / 160 -> 4,096,
     the embedding 10 -> 32, the up2 convs into 8, 16 and 32 px, the 3x3 at
@@ -220,12 +220,14 @@ Phases, each of which exits non-zero on failure:
     and ``int8_static`` (after ``calibrate_int8``) artifacts, MCGlow and
     MCPixelCNN as bf16 ones, at the CIFAR10 width, each saved, loaded in a
     process that imports only torch and ``kernels.ops`` and run at two
-    batch sizes: equal to the live sampler; the GAN and VAE artifacts'
-    images/s at ``SERVE_BATCH`` with the int8 kernels' launches per call
-    (counts zeroed just before the call) and max / mean |d| of the int8
-    images against the bf16 artifact's; ``int8_conv`` timed at five
-    shapes and ``int8_quantize`` at one, at ``SERVE_BATCH``, beside
-    im2col + ``torch._int_mm``, cuDNN's bf16 conv and the bound.
+    batch sizes (the PixelCNN's at one): equal to the live sampler; then,
+    that process ended, the GAN and VAE artifacts' images/s at
+    ``SERVE_BATCH`` with the int8 kernels' launches per call (counts zeroed
+    just before the call) and max / mean |d| of the int8 images against
+    the bf16 artifact's; ``int8_conv`` timed at five shapes and
+    ``int8_quantize`` at one, at ``SERVE_BATCH``, each held to its plain
+    version there, beside im2col + ``torch._int_mm``, cuDNN's bf16 conv
+    and the bound (over the taps that read the input).
 
 The last lines are the script's wall time, the card's name and power limit
 as ``nvidia-smi`` gives them, one JSON object listing every kernel, and
@@ -313,10 +315,8 @@ REAL_DIGITS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", 
 REAL_TRAIN = 1297  # the rest of the 1,797 digits is the test split
 # the real digits' depth is the first cut when the script nears its time
 # limit: the two GANs and the two Glows took ~90 s and ~140-165 s at 20 and
-# 10 epochs (H100 80GB HBM3, 700 W), now half of that; the GANs, VAEs and
-# PixelCNNs 10 -> 6 epochs and the CIFAR10 Glow trainer's steps 20 -> 10
-# since the export phase (a run on a slow host took 1,260 s at full depth)
-CLASSIFIER_EPOCHS, REAL_GAN_EPOCHS = 10, 6
+# 10 epochs (H100 80GB HBM3, 700 W), now half of that
+CLASSIFIER_EPOCHS, REAL_GAN_EPOCHS = 10, 10
 # VQ kernels: two codes whose float64 distances are closer than VQ_MARGIN *
 # (|x|^2 + max|e|^2) cannot be told apart by f32 sums in another order;
 # EMA sums of rows in another order within EMA_TOL * max|plain|
@@ -329,7 +329,7 @@ NEAR_TIE_FACTORS = (0.0, 1e-3, 0.03, 0.3, 1.0, 3.0, 10.0, 30.0)
 # (column_errors), at least VQ_CODES_EQUAL of the codes equal (a code may flip
 # where two are closer than the margin)
 VQ_STEP_TOL, VQ_CODES_EQUAL = 1e-2, 0.99
-VAE_STEPS, REAL_VAE_EPOCHS = 20, 6
+VAE_STEPS, REAL_VAE_EPOCHS = 20, 10
 # mc_gated_matmul with f32 operands against its plain version: f32 sums in
 # another order (bf16 operands: KERNEL_TOL)
 MC_TOL_F32 = 1e-5
@@ -341,7 +341,7 @@ SAMPLE_CHUNK, EXACT_GRIDS, EXACT_MARGIN = 1000, 16, 1e-3
 # the PixelCNN trainer on the CIFAR10-shaped files: its eval cut to the
 # first PIXELCNN_EVAL_BATCHES batches of the train split (the whole split is
 # 391 batches of ~25 ms of host time each)
-PIXELCNN_STEPS, PIXELCNN_EVAL_BATCHES, REAL_PIXELCNN_EPOCHS = 20, 40, 6
+PIXELCNN_STEPS, PIXELCNN_EVAL_BATCHES, REAL_PIXELCNN_EPOCHS = 20, 40, 10
 # Glow at the CIFAR10 width (hidden 512, K 16, L 3): its coupling nets' 1x1
 # at P = 256, 64, 16 positions (levels 1-3), 48 launches per forward; the
 # trainer cut to GLOW_STEPS steps per epoch, each evaluated on the first
@@ -349,7 +349,7 @@ PIXELCNN_STEPS, PIXELCNN_EVAL_BATCHES, REAL_PIXELCNN_EPOCHS = 20, 40, 6
 # GLOW_RECON_TOL of x (f32 flows, bf16 coupling nets run the same both ways);
 # generate timed over a sweep of GLOW_SWEEP in chunks of GLOW_CHUNK
 GLOW_POSITIONS, GLOW_PER_FORWARD = (256, 64, 16), 48
-GLOW_STEPS, GLOW_EVAL_BATCHES, REAL_GLOW_EPOCHS = 10, 8, 5
+GLOW_STEPS, GLOW_EVAL_BATCHES, REAL_GLOW_EPOCHS = 20, 8, 5
 GLOW_RECON_TOL, GLOW_SWEEP, GLOW_CHUNK = 1e-3, 400, 128
 # a Glow's reverse divides by s = sigmoid(log_s + 2), so a sample can
 # overflow to NaN (the reference's create filters them): at least this share
@@ -457,6 +457,7 @@ def check_first_dblock(shape, seed, timed: bool):
     if timed:
         ops = fd.kernel_operands(*args)  # the kernel alone, on packed operands
         rec["ms"] = cuda_ms(lambda: fd.launch(ops), 20)
+        rec["ms_source"] = "CUDA events (the kernel's launch alone, on packed operands)"
         rec["wrapper_ms"] = cuda_ms(lambda: fd.first_dblock(*args), 20)  # with the prologue
         rec["plain_ms"] = cuda_ms(lambda: fd.first_dblock_reference(*args), 10)
         chain, parts = block_library_chain(args)
@@ -1408,7 +1409,10 @@ def kernel_device_times(timers: list, reps: int = 20) -> None:
     ``ms_by_kernel`` and ``span_ms``, the mean time from a call's first
     kernel's start to its last one's end (the gaps between them in). After
     every timed phase, as the other profiles. A pass that sees another count
-    of launches is run again, twice at most."""
+    of launches is run again, twice at most; then ``ms`` is taken by CUDA
+    events if the profiler saw none of the launches, and the run fails if
+    it saw some, or the wrapper launched nothing. ``ms_source`` names the
+    route."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1427,13 +1431,19 @@ def kernel_device_times(timers: list, reps: int = 20) -> None:
             if per_call >= 1 and len(ev) == reps * per_call:
                 break
             log(f"{kname}: the profiler saw {len(ev)} launches of {reps} x {per_call}")
-        else:  # CUPTI gave no device time: CUDA events, the host's gaps included
+        else:
+            if per_call < 1 or ev:
+                raise SystemExit(f"{kname} ({rec.get('case', rec['shape'])}): {per_call} "
+                                 f"launches a call, the profiler saw {len(ev)} of "
+                                 f"{reps} x {per_call}")
+            # CUPTI gave no device time at all: CUDA events, the host's gaps included
             rec["ms"] = cuda_ms(kernel, reps)
             rec["ms_source"] = "CUDA events (the profiler saw none of the kernel's launches)"
             rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
             log(f"{kname} device (CUDA events):", json.dumps(
                 {k: rec[k] for k in ("shape", "case", "ms", "ms_source", "bound_ms")}))
             continue
+        rec["ms_source"] = "torch.profiler (CUPTI device time)"
         by_kernel = {}
         for e in ev:
             name = re.search(rf"{kname}_kernel\w*", e.name).group(0)
@@ -3402,6 +3412,7 @@ INT8_CASES = (
     ("VAE ConvTranspose 64->3 16->32", kint8.UP2, 16, 16, 64, 3, 4, 4, 0, True),
 )
 INT8_BATCHES = (1, 5, 64)
+# the first leads the kernels line
 INT8_TIMED = ("GAN Conv_1 3x3 at 32", "GAN Conv_0 up2 16->32", "GAN Conv_2 1x1 at 16",
               "Dense_0 128->4096", "VAE ConvTranspose 64->3 16->32")
 PEAK_INT8_OPS = 1979e12
@@ -3409,9 +3420,15 @@ SERVE_BATCH, SERVE_CALLS = 1000, 5
 EXPORTED = (("mcgan", None), ("mcgan", "int8"), ("mcgan", "int8_static"), ("cvae", None),
             ("cvae", "int8"), ("cvae", "int8_static"), ("mcglow", None), ("mcpixelcnn", None))
 # exported by a process of their own, started with the script (their traces
-# take minutes of host time: Glow's 48 flows, the PixelCNN's two loop bodies)
+# take minutes of host time: Glow's 48 flows, the PixelCNN's two loop bodies);
+# it traces on the host only (niced), the card holding the weights; its
+# threads as the main process's (one thread made Glow's initial weights
+# another rounding on the host)
 EXPORT_BACKGROUND = ("mcglow", "mcpixelcnn")
-ROUNDTRIP_BATCHES = (3, 8)
+# two batch sizes from one artifact; the PixelCNN's at one (its artifact is
+# two while_loops of eager launches)
+ROUNDTRIP_BATCHES = {"mcpixelcnn": (3,)}
+ROUNDTRIP_DEFAULT = (3, 8)
 EXPORT_WORK = os.path.join(str(build.BUILD_DIR), "export_smoke")
 
 
@@ -3459,17 +3476,27 @@ def check_int8(case, B, seed, static, out_dtype=torch.bfloat16) -> dict:
     return rec
 
 
+def _taps_in(n: int, k: int, pad: int, up2: bool) -> int:
+    """Along one axis of ``n`` input positions: the (output position, tap)
+    pairs whose tap reads the input, not the zero padding (up2: over both
+    output parities, each a 2-tap product of the input padded by 1)."""
+    if up2:
+        return sum(0 <= i + du + a - 1 < n for a in (0, 1) for du in (0, 1) for i in range(n))
+    return sum(0 <= o + d - pad < n for d in range(k) for o in range(n + 2 * pad - k + 1))
+
+
 def int8_conv_bound(case, B) -> tuple[float, str, float]:
     """``(bound_ms, bound_by, ops)``: x, w, the scales and the bf16 output
-    once, at 3.35 TB/s, against 2 ops per MAC (padding taps included) at
-    the int8 dense peak."""
+    once, at 3.35 TB/s, against 2 ops per MAC at the int8 dense peak, over
+    the taps that read the input (those that meet the zero padding left
+    out: the function needs none of them)."""
     _, layout, H, W, C, N, kh, kw, pad, has_bias = case
     Ho, Wo = kint8._out_hw(layout, H, W, kh, kw, pad)
-    taps = 4 if layout == kint8.UP2 else kh * kw  # per output pixel
-    K = (16 if layout == kint8.UP2 else kh * kw) * C
+    up2 = layout == kint8.UP2
+    K = (16 if up2 else kh * kw) * C
     nbytes = B * H * W * C + N * K + 4 * (N + B) + 2 * B * Ho * Wo * N + (2 * N if has_bias
                                                                           else 0)
-    ops = 2.0 * B * Ho * Wo * N * taps * C
+    ops = 2.0 * B * N * C * _taps_in(H, kh, pad, up2) * _taps_in(W, kw, pad, up2)
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_INT8_OPS * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", ops
 
@@ -3532,7 +3559,12 @@ def time_int8(case, timers: list, seed: int) -> dict:
     rec = {"case": case[0], "shape": [B, *case[2:6]], "bound_ms": bound, "bound_by": bound_by,
            "ops": ops}
     y = kint8.int8_conv(*args)
-    rec["max_abs_err"] = float((y.float() - kint8.int8_conv_reference(*args).float()).abs().max())
+    yr = kint8.int8_conv_reference(*args)
+    rec["units"] = _units(y, yr)
+    rec["max_abs_err"] = float((y.float() - yr.float()).abs().max())
+    if rec["units"] > 1 or tuple(y.shape) != tuple(yr.shape):
+        raise SystemExit(f"int8_conv disagrees with its plain version at the artifacts' batch: "
+                         f"{json.dumps(rec)}")
     rec["wrapper_ms"] = cuda_ms(lambda: kint8.int8_conv(*args), 20)
     rec["plain_ms"] = cuda_ms(lambda: kint8.int8_conv_reference(*args), 2)
     rec["library_ms"] = cuda_ms(lambda: int8_library(*args), 5)
@@ -3553,6 +3585,10 @@ def time_int8_quantize(timers: list) -> dict:
     q, xs = kint8.int8_quantize(x)
     qr, xsr = kint8.int8_quantize_reference(x)
     rec["max_abs_err"] = float((q.int() - qr.int()).abs().max())
+    rec["scales_equal"] = bool(torch.equal(xs, xsr))
+    if not torch.equal(q, qr) or not rec["scales_equal"]:
+        raise SystemExit(f"int8_quantize disagrees with its plain version at the artifacts' "
+                         f"batch: {json.dumps(rec)}")
     rec["wrapper_ms"] = cuda_ms(lambda: kint8.int8_quantize(x), 20)
     rec["plain_ms"] = cuda_ms(lambda: kint8.int8_quantize_reference(x), 5)
     timers.append((rec, "int8_quantize", lambda: kint8.int8_quantize(x)))
@@ -3595,7 +3631,8 @@ def export_artifact(s: Sampler, key: str, quantize=None) -> dict:
 
 
 EXPORTER_SCRIPT = r"""
-import json, sys
+import json, os, sys
+os.nice(10)
 sys.path.insert(0, sys.argv[1])
 import chip_smoke as cs
 out = {f"{name}:bf16": cs.export_artifact(s, f"{name}:bf16")
@@ -3604,17 +3641,23 @@ print(json.dumps(out))
 """
 
 
+def _child(script: str, *args: str) -> subprocess.Popen:
+    """``python -c script args`` from the checkout's root, killed at exit
+    if a failure ends the script first."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen([sys.executable, "-c", script, *args], cwd=root,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
 def start_background_exports() -> subprocess.Popen:
     """The ``EXPORT_BACKGROUND`` artifacts, exported by a process started
     here (at the script's start); :func:`run_export` collects them."""
     shutil.rmtree(EXPORT_WORK, ignore_errors=True)
     os.makedirs(EXPORT_WORK)
-    root = os.path.dirname(os.path.abspath(__file__))
-    proc = subprocess.Popen([sys.executable, "-c", EXPORTER_SCRIPT, root,
-                             json.dumps(list(EXPORT_BACKGROUND))], cwd=root,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    atexit.register(lambda: proc.poll() is None and proc.kill())  # a run that fails first
-    return proc
+    return _child(EXPORTER_SCRIPT, os.path.dirname(os.path.abspath(__file__)),
+                  json.dumps(list(EXPORT_BACKGROUND)))
 
 
 def finish_background_exports(proc: subprocess.Popen) -> dict:
@@ -3639,16 +3682,29 @@ def roundtrip_inputs(s: Sampler, n: int, seed: int):
 
 
 SERVE_SCRIPT = r"""
-import json, sys, time
+import json, os, sys, time
 import torch
 import mcgm_tpu_torch.kernels.ops  # the custom ops an artifact calls
 paths, inputs, out = json.loads(sys.argv[1]), sys.argv[2], sys.argv[3]
-data = torch.load(inputs)
-res, load_s = {}, {}
+
+
+def wait_for(path):  # each file appears by an atomic rename
+    deadline = time.time() + 600
+    while not os.path.exists(path):
+        if time.time() > deadline:
+            raise SystemExit(f"{path} did not appear")
+        time.sleep(0.05)
+
+
+res, load_s, data = {}, {}, None
 for key, path in paths.items():
+    wait_for(path)
     t0 = time.perf_counter()
     program = torch.export.load(path).module()
     load_s[key] = time.perf_counter() - t0
+    if data is None:
+        wait_for(inputs)
+        data = torch.load(inputs)
     with torch.no_grad():
         res[key] = [program(C, z) for C, z in data[key]]
 torch.save(res, out)
@@ -3660,8 +3716,21 @@ print(json.dumps({"load_s": load_s, "modules": own}))
 def run_export(name_limit: str, timers: list, background: subprocess.Popen):
     """The int8 kernels against their plain versions, the serving
     artifacts' round trips through a process that imports only torch and
-    ``kernels.ops``, their images/s at ``SERVE_BATCH``, and the int8
-    kernels' times. ``background`` exports the ``EXPORT_BACKGROUND`` ones."""
+    ``kernels.ops``, then, with the card to this process alone, their
+    images/s at ``SERVE_BATCH`` and the int8 kernels' times. ``background``
+    exports the ``EXPORT_BACKGROUND`` ones."""
+    # the round trips in a process of its own, started first: it serves each
+    # artifact once its file is there (the background's first) while this
+    # one checks the kernels and exports the others, and it ends before
+    # anything is timed
+    paths = {key: _artifact_path(key) for key in sorted(
+        (f"{name}:{quantize or 'bf16'}" for name, quantize in EXPORTED),
+        key=lambda k: k.split(":")[0] not in EXPORT_BACKGROUND)}
+    inputs_path = os.path.join(EXPORT_WORK, "inputs.pt")
+    t_serve = time.perf_counter()
+    server = _child(SERVE_SCRIPT, json.dumps(paths), inputs_path,
+                    os.path.join(EXPORT_WORK, "outputs.pt"))
+
     t0 = time.perf_counter()
     checks = [check_int8(case, B, seed=100 + i * 7 + B, static=static)
               for i, case in enumerate(INT8_CASES) for B in INT8_BATCHES
@@ -3678,43 +3747,59 @@ def run_export(name_limit: str, timers: list, background: subprocess.Popen):
             log("  int8 check:", json.dumps(r))
 
     samplers = export_samplers()
-    exported, rt_inputs, live = {}, {}, {}
+    to_export, calibrate_s, rt_inputs, live = {}, {}, {}, {}
     for name, quantize in EXPORTED:
         key = f"{name}:{quantize or 'bf16'}"
         s = samplers[name]
         if quantize == "int8_static":
             t = time.perf_counter()
             s = io_export.calibrate_int8(s, torch.Generator(device=DEV).manual_seed(7))
-            calibrate_s = time.perf_counter() - t
+            calibrate_s[key] = time.perf_counter() - t
         if name not in EXPORT_BACKGROUND:
-            exported[key] = export_artifact(s, key, quantize)
-            if quantize == "int8_static":
-                exported[key]["calibrate_s"] = calibrate_s
+            to_export[key] = (s, quantize)
         rt_inputs[key], live[key] = [], []
-        for n in ROUNDTRIP_BATCHES:
+        for n in ROUNDTRIP_BATCHES.get(name, ROUNDTRIP_DEFAULT):
             C, z, ref = roundtrip_inputs(samplers[name], n, seed=n)
             if quantize:
                 with torch.no_grad(), quant.int8_serving(io_export.QUANTIZE[quantize]):
                     ref = s.model.generate(C, z)
             rt_inputs[key].append((C, z))
             live[key].append(ref)
+    torch.save(rt_inputs, inputs_path + ".tmp")
+    os.replace(inputs_path + ".tmp", inputs_path)
+    exported = {}
+    for key, (s, quantize) in to_export.items():
+        exported[key] = export_artifact(s, key, quantize)
+        if key in calibrate_s:
+            exported[key]["calibrate_s"] = calibrate_s[key]
     t = time.perf_counter()
     exported.update(finish_background_exports(background))
     log("export artifacts:", json.dumps({"waited_for_background_s": time.perf_counter() - t,
                                          **exported}))
-    paths = {key: _artifact_path(key) for key in live}
-
-    # the round trips in a process of their own, beside the timing here
-    torch.save(rt_inputs, os.path.join(EXPORT_WORK, "inputs.pt"))
-    t_serve = time.perf_counter()
-    server = subprocess.Popen([sys.executable, "-c", SERVE_SCRIPT, json.dumps(paths),
-                               os.path.join(EXPORT_WORK, "inputs.pt"),
-                               os.path.join(EXPORT_WORK, "outputs.pt")],
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                              cwd=os.path.dirname(os.path.abspath(__file__)))
+    out, err = server.communicate(timeout=600)
+    if server.returncode != 0:
+        raise SystemExit(f"export: the serving process failed:\n{err[-4000:]}")
+    served = json.loads(out.strip().splitlines()[-1])
+    outs = torch.load(os.path.join(EXPORT_WORK, "outputs.pt"))
+    roundtrips, bad = {}, []
+    stray = [m for m in served["modules"] if m != "mcgm_tpu_torch"
+             and not m.startswith(("mcgm_tpu_torch.kernels", "mcgm_tpu_torch.ops"))]
+    if stray:
+        bad.append(f"the serving process imported {stray}")
+    for key in paths:
+        errs = [float((o.float() - ref.float()).abs().max()) for o, ref in
+                zip(outs[key], live[key])]
+        roundtrips[key] = {"max_abs_err": errs, "shapes": [list(o.shape) for o in outs[key]],
+                           "load_s": served["load_s"][key],
+                           "finite": all(bool(torch.isfinite(o).all()) for o in outs[key])}
+        if (len(errs) != len(live[key]) or any(e != 0.0 for e in errs)
+                or not roundtrips[key]["finite"]):
+            bad.append(f"{key}: the served images differ from the live sampler's by {errs}")
+    log("export round trips:", json.dumps({"serving_process_s": time.perf_counter() - t_serve,
+                                           "modules": served["modules"], **roundtrips}))
 
     # images/s of the GAN and VAE artifacts at SERVE_BATCH, loaded here
-    throughput, launches, outputs, bad = {}, {}, {}, []
+    throughput, launches, outputs = {}, {}, {}
     for key in [k for k in paths if k.split(":")[0] not in EXPORT_BACKGROUND]:
         fn = io_export.load_artifact(paths[key])
         s = samplers[key.split(":")[0]]
@@ -3745,26 +3830,6 @@ def run_export(name_limit: str, timers: list, background: subprocess.Popen):
     timed = [time_int8(case, timers, seed=500 + i) for i, case in enumerate(INT8_CASES)
              if case[0] in INT8_TIMED]
     quantize_rec = time_int8_quantize(timers)
-    out, err = server.communicate(timeout=600)
-    if server.returncode != 0:
-        raise SystemExit(f"export: the serving process failed:\n{err[-4000:]}")
-    served = json.loads(out.strip().splitlines()[-1])
-    outs = torch.load(os.path.join(EXPORT_WORK, "outputs.pt"))
-    roundtrips = {}
-    stray = [m for m in served["modules"] if m != "mcgm_tpu_torch"
-             and not m.startswith(("mcgm_tpu_torch.kernels", "mcgm_tpu_torch.ops"))]
-    if stray:
-        bad.append(f"the serving process imported {stray}")
-    for key in paths:
-        errs = [float((o.float() - ref.float()).abs().max()) for o, ref in
-                zip(outs[key], live[key])]
-        roundtrips[key] = {"max_abs_err": errs, "shapes": [list(o.shape) for o in outs[key]],
-                           "load_s": served["load_s"][key],
-                           "finite": all(bool(torch.isfinite(o).all()) for o in outs[key])}
-        if any(e != 0.0 for e in errs) or not roundtrips[key]["finite"]:
-            bad.append(f"{key}: the served images differ from the live sampler's by {errs}")
-    log("export round trips:", json.dumps({"serving_process_s": time.perf_counter() - t_serve,
-                                           "modules": served["modules"], **roundtrips}))
     shutil.rmtree(EXPORT_WORK, ignore_errors=True)
     if bad:
         raise SystemExit("export failed:\n" + "\n".join(bad))
@@ -3874,15 +3939,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = True  # torch's default, as the bench script runs
     train_launches, _, profile_train = phase("train", run_train, name_limit)
     fused_launches, _ = phase("gan fused g pass", run_gan_fused, name_limit)
-    # after the background exporter has had the time it needs
-    export_launches, int8_timed, int8_quantize_rec, int8_checks = phase(
-        "export", run_export, name_limit, timers, exporter)
     work = os.path.join(str(build.BUILD_DIR), "trainer_smoke")
     shutil.rmtree(work, ignore_errors=True)
     try:
         trainer_launches, _, profile_trainer = phase("trainer", run_trainer, name_limit, work)
         data_dir = os.path.join(work, "data")  # the CIFAR10-shaped files, reused
         vae_launches, _ = phase("vae", run_vae, name_limit, data_dir, os.path.join(work, "vae"))
+        # after the background exporter has had the time it needs
+        export_launches, int8_timed, int8_quantize_rec, int8_checks = phase(
+            "export", run_export, name_limit, timers, exporter)
         vqvae_launches, _, profile_vqvae = phase("vqvae", run_vqvae, name_limit, data_dir,
                                                  os.path.join(work, "vqvae"))
         # on the codes of the VQ-VAE just trained (its _best in work/vqvae)
@@ -3933,7 +3998,8 @@ def main() -> int:
         "source": "mcgm_tpu_torch/csrc/first_dblock.cu",
         "replaces": "tools/ab_first_block.py:159",
         "launches": train_launches["first_dblock"], "max_abs_err": train_d["max_abs_err"],
-        "ms": train_d["ms"], "plain_ms": train_d["plain_ms"], "bound_ms": train_d["bound_ms"],
+        "ms": train_d["ms"], "ms_source": train_d["ms_source"], "plain_ms": train_d["plain_ms"],
+        "bound_ms": train_d["bound_ms"],
         "bound_by": train_d["bound_by"], "library_ms": train_d["library_ms"],
         "library": "cuDNN bf16 chain: conv3x3, relu*code, conv4x4/s2, avgpool+conv1x1",
         "shape": train_d["shape"], "wrapper_ms": train_d["wrapper_ms"],
@@ -3951,12 +4017,13 @@ def main() -> int:
                              **{f"vae_{m}": c["first_dblock"] for m, c in vae_launches.items()},
                              **{f"real_{m}": c["first_dblock"]
                                 for m, c in real_vae_launches.items()}},
-        "other_shapes": [{k: r[k] for k in ("shape", "ms", "wrapper_ms", "bound_ms", "bound_by",
-                                            "plain_ms", "library_ms", "max_abs_err")}
+        "other_shapes": [{k: r[k] for k in ("shape", "ms", "ms_source", "wrapper_ms", "bound_ms",
+                                            "bound_by", "plain_ms", "library_ms",
+                                            "max_abs_err")}
                          for r in (train_g, real_d, real_g, full, tail, cifar)],
     }]
-    vq_shapes = ("shape", "case", "ms", "wrapper_ms", "bound_ms", "bound_by", "plain_ms",
-                 "library_ms", "max_abs_err")
+    vq_shapes = ("shape", "case", "ms", "ms_source", "wrapper_ms", "bound_ms", "bound_by",
+                 "plain_ms", "library_ms", "max_abs_err")
     for kname, rec, others, library, replaces in (
             ("vq_assign", assign_train, [assign_step, assign_eval],
              "torch.addmm (|e|^2 - 2 x.e) + argmin, f32 (TF32 off)",
@@ -3969,7 +4036,8 @@ def main() -> int:
             "name": kname, "route": "cuda", "source": f"mcgm_tpu_torch/csrc/{kname}.cu",
             "replaces": replaces,
             "launches": vqvae_launches["step"][kname], "max_abs_err": rec["max_abs_err"],
-            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "ms": rec["ms"], "ms_source": rec["ms_source"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"], "library": library,
             "shape": rec["shape"], "case": rec["case"], "wrapper_ms": rec["wrapper_ms"],
             "roofline_share": rec["roofline_share"],
@@ -3995,6 +4063,7 @@ def main() -> int:
                     "pl.pallas_call at :66)",
         "launches": px["sample_chunk"]["mc_gated_matmul"],
         "max_abs_err": mc_head["max_abs_err"], "ms": mc_head["ms"],
+        "ms_source": mc_head["ms_source"],
         "plain_ms": mc_head["plain_ms"], "bound_ms": mc_head["bound_ms"],
         "bound_by": mc_head["bound_by"], "library_ms": mc_head["library_ms"],
         "library": "torch.addmm (P = 1) / baddbmm (P = 64) with BatchNorm folded into the "
@@ -4030,7 +4099,8 @@ def main() -> int:
                     "VJP, left to XLA beside the Pallas kernel: the recompute, the epilogue's "
                     "gradient and the dalpha / dbeta sums)",
         "launches": glow_launches["mcglow"]["step_backward"],
-        "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
+        "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"], "ms_source": bwd["ms_source"],
+        "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
         "library_ms": bwd["library_ms"],
         "library": "bf16 bmm recompute, f32 mask / sums / scale, bf16 bmm for dx and einsum for "
@@ -4050,16 +4120,18 @@ def main() -> int:
         "other_shapes": [{k: r[k] for k in vq_shapes + ("variant", "roofline_share",
                                                         "parts_ms")}
                          for r in mc_glow_bwd[1:]]})
-    conv = int8_timed[0]  # GAN Conv_1 3x3 at 32 px, the artifacts' batch
-    int8_keys = ("shape", "case", "ms", "wrapper_ms", "bound_ms", "bound_by", "plain_ms",
-                 "library_ms", "library_bf16_ms", "max_abs_err", "roofline_share")
+    # GAN Conv_1 3x3 at 32 px, the artifacts' batch
+    conv = next(r for r in int8_timed if r["case"] == INT8_TIMED[0])
+    int8_keys = ("shape", "case", "ms", "ms_source", "wrapper_ms", "bound_ms", "bound_by",
+                 "plain_ms", "library_ms", "library_bf16_ms", "max_abs_err", "roofline_share")
     int8_paths = {f"export_{k.replace(':', '_')}": v for k, v in export_launches.items()}
     kernels.append({
         "name": "int8_conv", "route": "cuda", "source": "mcgm_tpu_torch/csrc/int8_conv.cu",
         "replaces": "mcgm_tpu/ops/layers.py:113 _int8_conv / :135 _int8_apply (XLA s8 x s8 -> "
                     "s32 convs; no Pallas source)",
         "launches": export_launches["mcgan:int8"]["int8_conv"],
-        "max_abs_err": conv["max_abs_err"], "ms": conv["ms"], "plain_ms": conv["plain_ms"],
+        "max_abs_err": conv["max_abs_err"], "ms": conv["ms"], "ms_source": conv["ms_source"],
+        "plain_ms": conv["plain_ms"],
         "bound_ms": conv["bound_ms"], "bound_by": conv["bound_by"],
         "library_ms": conv["library_ms"],
         "library": "im2col + torch._int_mm (cuBLASLt s8 x s8 -> s32) and the same "
@@ -4071,14 +4143,15 @@ def main() -> int:
                    "bit_equal": sum(r["units"] == 0 for r in int8_checks),
                    "max_units": max(r["units"] for r in int8_checks)},
         "launches_by_path": {k: v["int8_conv"] for k, v in int8_paths.items()},
-        "other_shapes": [{k: r[k] for k in int8_keys} for r in int8_timed[1:]]})
+        "other_shapes": [{k: r[k] for k in int8_keys} for r in int8_timed if r is not conv]})
     qrec = int8_quantize_rec
     kernels.append({
         "name": "int8_quantize", "route": "cuda", "source": "mcgm_tpu_torch/csrc/int8_conv.cu",
         "replaces": "mcgm_tpu/ops/layers.py:104 _quantize_sym on activations, in "
                     ":113 _int8_conv / :135 _int8_apply (XLA; no Pallas source)",
         "launches": export_launches["mcgan:int8"]["int8_quantize"],
-        **{k: qrec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        **{k: qrec[k] for k in ("max_abs_err", "ms", "ms_source", "plain_ms", "bound_ms",
+                                "bound_by",
                                 "library_ms", "shape", "case", "wrapper_ms",
                                 "roofline_share")},
         **({k: qrec[k] for k in ("ms_by_kernel", "span_ms") if k in qrec}),

@@ -429,10 +429,6 @@ extern "C" int mcgm_int8_quantize(const void* x, int dtype, long long B, long lo
   return cudaErrorInvalidValue;
 }
 
-// The kernel's path for C input channels: 1 vectorised (C % 16 == 0), 0
-// byte by byte.
-extern "C" int mcgm_int8_conv_vectorised(int C) { return C % 16 == 0; }
-
 // x [B, H, W, C] int8, w [N, taps C] int8 (layout 0: kh kw taps; layout 1:
 // 16 taps, phase-major), wscale [N] f32, xscale [B] f32, bias [N] in the
 // output dtype or null, out [B, Ho, Wo, N] in out_dtype (0 f32, 1 bf16).

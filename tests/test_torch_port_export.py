@@ -9,7 +9,7 @@ against the JAX live int8 apply within the JAX package's own artifact bound
 (mean |d| < 2e-3, max < 0.05: its CPU int8 convs run through float, so an
 activation a float ulp apart may round to another level). The JAX side is
 five programs (the layers; per model its calibration and both int8
-``generate``\ s), each compiled once at a low XLA optimisation level on a
+``generate`` calls), each compiled once at a low XLA optimisation level on a
 thread while the next is traced, no ``jax.export``; the port takes their
 variables, quant stats included, through ``io.jax_import``.
 
@@ -278,15 +278,30 @@ def _request(n, seed):
 
 @pytest.fixture(scope="module")
 def gan_int8(models):
-    """An MCGAN sampler and its dynamic int8 artifact, symbolic batch."""
-    s = _sampler("mcgan", _port("mcgan", models["mcgan"]["v"]))
-    return s, pexport.load_serving_fn(pexport.export_sampler(s, batch="b", quantize="int8"))
+    """An MCGAN sampler, calibrated, then given 5 -> 7 created modes, and
+    the created sampler's dynamic int8 artifact, symbolic batch (the one
+    GAN export the artifact tests share); also the sampler before the
+    surgery."""
+    s = pexport.calibrate_int8(_sampler("mcgan", _port("mcgan", models["mcgan"]["v"])),
+                               n_batches=1, batch_size=8)
+    s2 = created_sampler(s, 7, 3)
+    blob = pexport.export_sampler(s2, batch="b", quantize="int8")
+    return s2, pexport.load_serving_fn(blob), s
+
+
+@pytest.fixture(scope="module")
+def vae_blob(models):
+    """A CVAE sampler and its full-precision artifact at batch 4."""
+    s = _sampler("cvae", _port("cvae", models["cvae"]["v"]))
+    return s, pexport.export_sampler(s, batch=4)
 
 
 def test_export_gan_symbolic_batch_roundtrip(gan_int8):
     """One artifact, several batch sizes, each the live int8 apply (its
-    weights quantized once, at export); int8 stays near full precision."""
-    s, fn = gan_int8
+    weights quantized once, at export); int8 stays near full precision;
+    the int8 mode is off again after the export."""
+    s, fn, _ = gan_int8
+    assert quant.int8_mode() is None
     assert fn.info == {"family": "gan", "device": "cpu", "quantize": "int8", "batch": "b",
                        "model_name": "mcgan"}
     for n in (1, 3, 5):
@@ -297,10 +312,10 @@ def test_export_gan_symbolic_batch_roundtrip(gan_int8):
         assert (got - _live(s, C, z)).abs().mean() < 0.1
 
 
-def test_export_vae_and_file_roundtrip(models, tmp_path):
-    s = _sampler("cvae", _port("cvae", models["cvae"]["v"]))
+def test_export_vae_and_file_roundtrip(vae_blob, tmp_path):
+    s, blob = vae_blob
     path = str(tmp_path / "export" / "m.pt2")
-    pexport.save_artifact(pexport.export_sampler(s, batch=4), path)
+    pexport.save_artifact(blob, path)
     assert not (tmp_path / "export" / "m.pt2.tmp").exists()
     C, z = _request(4, 7)
     torch.testing.assert_close(pexport.load_artifact(path)(C, z), _live(s, C, z), rtol=0,
@@ -344,7 +359,7 @@ def test_export_pixelcnn_full_autoregressive():
 def test_export_int8_batch_invariant(gan_int8):
     """A request's images do not depend on a co-batched 100x outlier: the
     activation scales are per example."""
-    _, fn = gan_int8
+    _, fn, _ = gan_int8
     C, z = _request(4, 3)
     alone = fn(C[:1], z[:1])
     outliers = 100.0 * torch.randn((3, LATENT), generator=torch.Generator().manual_seed(10))
@@ -370,24 +385,24 @@ def test_export_int8_static_calibrated(models):
     torch.testing.assert_close(fn(C[:1], z[:1]), got[:1], rtol=0, atol=1e-6)
 
 
-def test_export_created_modes_artifact(models):
+def test_export_created_modes_artifact(gan_int8):
     """Mode surgery composes with serving: 5 -> 7 never-trained modes, the
     created sampler's artifact equal to the live created sampler; the
     calibrated scales stay with the created sampler."""
-    s = pexport.calibrate_int8(_sampler("mcgan", _port("mcgan", models["mcgan"]["v"])),
-                               n_batches=1, batch_size=8)
-    s2 = created_sampler(s, 7, 3)
+    s2, fn, s = gan_int8
     assert s2.cfg["classes_size"] == 7
     assert quant.act_amax_state(s2.model).keys() == quant.act_amax_state(s.model).keys()
     assert quant.act_amax_state(s2.model)
-    fn = pexport.load_serving_fn(pexport.export_sampler(s2))
     C, z = torch.arange(7), torch.randn((7, LATENT), generator=torch.Generator().manual_seed(1))
-    torch.testing.assert_close(fn(C, z), _live(s2, C, z), rtol=0, atol=1e-6)
+    got = fn(C, z)
+    assert got.shape[0] == 7
+    torch.testing.assert_close(got, _live(s2, C, z, "dynamic"), rtol=0, atol=1e-6)
 
 
 def test_export_refusals_and_the_flag(models, monkeypatch):
     """int8 refused for glow and pixelcnn, an unknown mode refused, and the
-    int8 mode restored after an export, also one that fails."""
+    int8 mode restored after an export that fails (after one that does not:
+    ``test_export_gan_symbolic_batch_roundtrip``)."""
     for name in ("mcglow", "cpixelcnn"):
         s = Sampler(_cfg(name), torch.nn.Linear(1, 1))
         with pytest.raises(ValueError, match="int8 serving"):
@@ -397,8 +412,8 @@ def test_export_refusals_and_the_flag(models, monkeypatch):
     s = _sampler("mcvae", _port("mcvae", models["mcvae"]["v"]))
     with pytest.raises(ValueError, match="unknown quantize mode"):
         pexport.export_sampler(s, quantize="int4")
-    pexport.export_sampler(s, batch=2, quantize="int8")
     assert quant.int8_mode() is None
+
     def fail(*args, **kwargs):
         assert quant.int8_mode() == "dynamic"
         raise RuntimeError("export failed")
@@ -425,12 +440,11 @@ def test_export_cli_flags_parse(tmp_path):
             cli_export.export_flags(["--platforms", bad], {})
 
 
-def test_cuda_artifact_refused_without_card(models):
+def test_cuda_artifact_refused_without_card(vae_blob):
     """An artifact made for the card does not run on the CPU instead."""
     if torch.cuda.is_available():
         pytest.skip("a card is present")
-    s = _sampler("mcvae", _port("mcvae", models["mcvae"]["v"]))
-    blob = pexport.export_sampler(s, batch=2)
+    _, blob = vae_blob
     out = io.BytesIO()
     with zipfile.ZipFile(io.BytesIO(blob)) as src, zipfile.ZipFile(out, "w") as dst:
         for item in src.infolist():
