@@ -215,8 +215,13 @@ Phases, each of which exits non-zero on failure:
     the embedding 10 -> 32, the up2 convs into 8, 16 and 32 px, the 3x3 at
     8, 16, 32 and 4 px, the 1x1 at 4, 8 and 16 px, the transposed convs
     256 -> 128 -> 64 -> 3) at B = 1, 5 and 64, dynamic and static, bf16 out
-    (and f32 at B = 5): int8 values and scales equal, outputs within one
-    unit of the output dtype; MCGAN and CVAE exported as bf16, ``int8``
+    (and f32 at B = 5), and at the variants no generator shape reaches
+    (``INT8_EXTRA_CASES``: the narrow kernel on a direct 3x3, the byte-load
+    one where the wide kernel's TMA stores cannot take the output) in both
+    dtypes, each record naming the kernels' variants; f32 examples of 4 MB
+    through the quantizer's ``stream`` kernel, and a NaN through each
+    quantizer kernel: int8 values and scales equal, outputs within one unit
+    of the output dtype; MCGAN and CVAE exported as bf16, ``int8``
     and ``int8_static`` (after ``calibrate_int8``) artifacts, MCGlow and
     MCPixelCNN as bf16 ones, at the CIFAR10 width, each saved, loaded in a
     process that imports only torch and ``kernels.ops`` and run at two
@@ -241,6 +246,7 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import collections
 import contextlib
 import copy
 import functools
@@ -261,6 +267,8 @@ import torch
 import torch.nn.functional as F
 
 from mcgm_tpu_torch.bench import train_gan
+from mcgm_tpu_torch.bench.int8_cases import (INT8_BATCHES, INT8_CASES, INT8_EXTRA_CASES,
+                                             INT8_TIMED, SERVE_BATCH)
 from mcgm_tpu_torch.cli import make_stats as cli_make_stats
 from mcgm_tpu_torch.cli import sample as cli_sample
 from mcgm_tpu_torch.cli import test_generated as cli_test_generated
@@ -505,8 +513,10 @@ def check_first_dblock_grad(shape, seed):
 
 
 def sass_tensor_core_count(name: str) -> dict | None:
-    """Counts of HMMA / HGMMA (tensor-core) and FFMA instructions in the
-    built library's SASS, or None where ``cuobjdump`` is not installed."""
+    """Counts of the tensor-core instructions (HMMA, HGMMA: bf16 / TF32
+    ``mma.sync`` and ``wgmma``; IMMA, IGMMA: their s8 forms) and of FFMA in
+    the built library's SASS, or None where ``cuobjdump`` is not
+    installed."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
         tool = shutil.which("cuobjdump")
@@ -514,7 +524,8 @@ def sass_tensor_core_count(name: str) -> dict | None:
             return None
     sass = subprocess.run([tool, "-sass", str(build.library_path(name))], capture_output=True,
                           text=True, check=True, timeout=120).stdout
-    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HMMA", "HGMMA", "IMMA", "FFMA")}
+    return {op: len(re.findall(rf"\b{op}\b", sass))
+            for op in ("HMMA", "HGMMA", "IMMA", "IGMMA", "FFMA")}
 
 
 # ------------------------------------------------------------------- slice
@@ -1408,16 +1419,16 @@ def kernel_device_times(timers: list, reps: int = 20) -> None:
     kernels (``vq_ema``: by its wrapper's count over one call), also
     ``ms_by_kernel`` and ``span_ms``, the mean time from a call's first
     kernel's start to its last one's end (the gaps between them in). After
-    every timed phase, as the other profiles. A pass that sees another count
-    of launches is run again, twice at most; then ``ms`` is taken by CUDA
-    events if the profiler saw none of the launches, and the run fails if
-    it saw some, or the wrapper launched nothing. ``ms_source`` names the
-    route."""
+    every timed phase, before the profiles of whole steps. A pass that sees
+    another count of launches is run again, three times at most; then
+    ``ms`` is taken by CUDA events if the profiler saw none of the
+    launches, and the run fails if it saw some, or the wrapper launched
+    nothing. ``ms_source`` names the route."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for rec, kname, kernel in timers:
-        for attempt in range(3):  # the profiler has been seen to drop an event
+        for attempt in range(4):  # the profiler has been seen to drop events
             before = {**counts(), **int8_counts()}[kname]
             kernel()
             torch.cuda.synchronize()
@@ -1440,8 +1451,8 @@ def kernel_device_times(timers: list, reps: int = 20) -> None:
             rec["ms"] = cuda_ms(kernel, reps)
             rec["ms_source"] = "CUDA events (the profiler saw none of the kernel's launches)"
             rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
-            log(f"{kname} device (CUDA events):", json.dumps(
-                {k: rec[k] for k in ("shape", "case", "ms", "ms_source", "bound_ms")}))
+            log(f"{kname} device ({rec['ms_source']}):", json.dumps(
+                {k: rec[k] for k in ("shape", "case", "ms", "bound_ms", "roofline_share")}))
             continue
         rec["ms_source"] = "torch.profiler (CUPTI device time)"
         by_kernel = {}
@@ -3393,37 +3404,16 @@ def run_preempt(name_limit: str, data_dir: str, out_dir: str):
 
 
 # ------------------------------------------------------------------- export
-# int8_conv at the shapes the CIFAR10-width GAN and VAE generators give it
-# (the case, layout, H, W, C, N, kh, kw, pad, bias), each for these batches,
-# dynamic and static; the timed ones at the artifacts' batch
-INT8_CASES = (
-    ("Dense_0 128->4096", kint8.DIRECT, 1, 1, 128, 4096, 1, 1, 0, True),
-    ("CGAN / CVAE Dense_0 160->4096", kint8.DIRECT, 1, 1, 160, 4096, 1, 1, 0, True),
-    ("CGAN / CVAE embedding 10->32 (byte loads)", kint8.DIRECT, 1, 1, 10, 32, 1, 1, 0, False),
-    *((f"GAN Conv_0 up2 {h}->{2 * h}", kint8.UP2, h, h, 256, 256, 4, 4, 0, False)
-      for h in (4, 8, 16)),
-    *((f"GAN Conv_1 3x3 at {h}", kint8.DIRECT, h, h, 256, 256, 3, 3, 1, True)
-      for h in (8, 16, 32)),
-    *((f"GAN Conv_2 1x1 at {h}", kint8.DIRECT, h, h, 256, 256, 1, 1, 0, True)
-      for h in (4, 8, 16)),
-    ("VAE res block 3x3 at 4", kint8.DIRECT, 4, 4, 256, 256, 3, 3, 1, True),
-    ("VAE ConvTranspose 256->128 4->8", kint8.UP2, 4, 4, 256, 128, 4, 4, 0, True),
-    ("VAE ConvTranspose 128->64 8->16", kint8.UP2, 8, 8, 128, 64, 4, 4, 0, True),
-    ("VAE ConvTranspose 64->3 16->32", kint8.UP2, 16, 16, 64, 3, 4, 4, 0, True),
-)
-INT8_BATCHES = (1, 5, 64)
-# the first leads the kernels line
-INT8_TIMED = ("GAN Conv_1 3x3 at 32", "GAN Conv_0 up2 16->32", "GAN Conv_2 1x1 at 16",
-              "Dense_0 128->4096", "VAE ConvTranspose 64->3 16->32")
+# int8_conv at the shapes the CIFAR10-width GAN and VAE generators give it,
+# each at INT8_BATCHES, dynamic and static, beside INT8_EXTRA_CASES; the
+# INT8_TIMED ones at the artifacts' batch SERVE_BATCH
 PEAK_INT8_OPS = 1979e12
-SERVE_BATCH, SERVE_CALLS = 1000, 5
+SERVE_CALLS = 5
 EXPORTED = (("mcgan", None), ("mcgan", "int8"), ("mcgan", "int8_static"), ("cvae", None),
             ("cvae", "int8"), ("cvae", "int8_static"), ("mcglow", None), ("mcpixelcnn", None))
 # exported by a process of their own, started with the script (their traces
 # take minutes of host time: Glow's 48 flows, the PixelCNN's two loop bodies);
-# it traces on the host only (niced), the card holding the weights; its
-# threads as the main process's (one thread made Glow's initial weights
-# another rounding on the host)
+# it traces on the host only (niced), the card holding the weights
 EXPORT_BACKGROUND = ("mcglow", "mcpixelcnn")
 # two batch sizes from one artifact; the PixelCNN's at one (its artifact is
 # two while_loops of eager launches)
@@ -3454,6 +3444,19 @@ def _units(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.view(view).long() - b.view(view).long()).abs().max())
 
 
+def int8_variants(case, B, static, out_dtype=torch.bfloat16, x_dtype=torch.bfloat16) -> dict:
+    """The kernels a call takes (``kernels/int8.py``'s plans; operands
+    16-byte aligned, as the checks' are): ``variant`` of ``int8_conv`` and
+    of ``int8_quantize`` (with its cluster's size)."""
+    _, layout, H, W, C, N, kh, kw, pad, _ = case
+    plan = kint8.conv_plan(B, H, W, C, N, layout, kh, kw, pad,
+                           out_itemsize=torch.finfo(out_dtype).bits // 8)
+    qplan = kint8.quantize_plan(B, H * W * C, torch.finfo(x_dtype).bits // 8, static)
+    return {"variant": plan["variant"],
+            "quantize_variant": qplan["variant"] + (f" x{qplan['cluster']}"
+                                                    if qplan["cluster"] else "")}
+
+
 def check_int8(case, B, seed, static, out_dtype=torch.bfloat16) -> dict:
     """``int8_quantize`` and ``int8_conv`` against their plain versions: the
     int8 values and scales equal, the outputs within one unit of the output
@@ -3470,9 +3473,55 @@ def check_int8(case, B, seed, static, out_dtype=torch.bfloat16) -> dict:
            "out": str(out_dtype).split(".")[-1], "shape": [B, H, W, C, N],
            "quantize_equal": bool(torch.equal(q, qr) and torch.equal(xs, xsr)),
            "units": _units(y, yr), "max_abs_err": float((y.float() - yr.float()).abs().max()),
-           "clipped": float((q.abs() == 127).float().mean())}
+           "clipped": float((q.abs() == 127).float().mean()),
+           **int8_variants(case, B, static, out_dtype)}
     if not rec["quantize_equal"] or rec["units"] > 1 or tuple(y.shape) != tuple(yr.shape):
         raise SystemExit(f"int8 kernels disagree with their plain versions: {json.dumps(rec)}")
+    return rec
+
+
+def check_int8_quantize_large() -> dict:
+    """``int8_quantize`` (dynamic) on f32 examples of 4 MB, more than a
+    cluster's shared memory holds (the ``stream`` kernel: x read twice),
+    equal to its plain version."""
+    x = torch.randn((2, 64, 64, 256), device=DEV, generator=torch.Generator(
+        device=DEV).manual_seed(41)) * 3
+    x[1, 5, 7, 9] = 40.0  # one example's amax far from the rest
+    q, xs = kint8.int8_quantize(x)
+    qr, xsr = kint8.int8_quantize_reference(x)
+    plan = kint8.quantize_plan(2, x[0].numel(), 4, False)
+    rec = {"case": "f32 examples of 4 MB, dynamic", "shape": list(x.shape),
+           "quantize_variant": f"{plan['variant']} x{plan['cluster']}",
+           "equal": bool(torch.equal(q, qr) and torch.equal(xs, xsr))}
+    if not rec["equal"] or plan["variant"] != "stream":
+        raise SystemExit(f"int8_quantize on large f32 examples: {json.dumps(rec)}")
+    return rec
+
+
+def check_int8_quantize_nan() -> dict:
+    """``int8_quantize`` on inputs that hold a NaN, through each of its
+    kernels: the int8 values equal to the plain version's, the scales equal
+    with the NaN where the plain version has it (an example's amax, or a
+    static amax, that is NaN gives a NaN scale)."""
+    g = torch.Generator(device=DEV).manual_seed(43)
+    rec = {}
+    for shape, dtype, static in (((8, 128), torch.bfloat16, False),
+                                 ((4, 16, 16, 256), torch.bfloat16, False),
+                                 ((2, 64, 64, 256), torch.float32, False),
+                                 ((4, 16, 16, 256), torch.bfloat16, True)):
+        x = torch.randn(shape, generator=g, device=DEV).to(dtype)
+        x[1].view(-1)[37] = float("nan")
+        for amax in ((torch.tensor(1.5, device=DEV), torch.tensor(float("nan"), device=DEV))
+                     if static else (None,)):
+            q, xs = kint8.int8_quantize(x, amax)
+            qr, xsr = kint8.int8_quantize_reference(x, amax)
+            plan = kint8.quantize_plan(shape[0], x[0].numel(), x.element_size(), static)
+            key = f"{plan['variant']} {list(shape)}" + ("" if amax is None else
+                                                       f" amax {float(amax)}")
+            rec[key] = bool(torch.equal(q, qr) and torch.equal(xs.isnan(), xsr.isnan())
+                            and torch.equal(xs.nan_to_num(), xsr.nan_to_num()))
+    if not all(rec.values()):
+        raise SystemExit(f"int8_quantize with a NaN: {json.dumps(rec)}")
     return rec
 
 
@@ -3557,7 +3606,7 @@ def time_int8(case, timers: list, seed: int) -> dict:
     args = (q, w, wscale, xs, bias) + case[1:2] + case[6:9] + (torch.bfloat16,)
     bound, bound_by, ops = int8_conv_bound(case, B)
     rec = {"case": case[0], "shape": [B, *case[2:6]], "bound_ms": bound, "bound_by": bound_by,
-           "ops": ops}
+           "ops": ops, **int8_variants(case, B, False)}
     y = kint8.int8_conv(*args)
     yr = kint8.int8_conv_reference(*args)
     rec["units"] = _units(y, yr)
@@ -3580,8 +3629,10 @@ def time_int8_quantize(timers: list) -> dict:
     artifact quantizes at its batch: Conv_1's input at 32 px."""
     x = torch.randn((SERVE_BATCH, 32, 32, 256), device=DEV).to(torch.bfloat16)
     nbytes = x.numel() * 3 + 4 * SERVE_BATCH  # x once, q once, the scales
+    plan = kint8.quantize_plan(SERVE_BATCH, x[0].numel(), 2, False)
     rec = {"case": "GAN Conv_1 input at 32, dynamic", "shape": list(x.shape),
-           "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes", "library_ms": None}
+           "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes", "library_ms": None,
+           "variant": f"{plan['variant']} x{plan['cluster']}"}
     q, xs = kint8.int8_quantize(x)
     qr, xsr = kint8.int8_quantize_reference(x)
     rec["max_abs_err"] = float((q.int() - qr.int()).abs().max())
@@ -3737,10 +3788,17 @@ def run_export(name_limit: str, timers: list, background: subprocess.Popen):
               for static in (False, True)]
     checks += [check_int8(case, 5, seed=300 + i, static=False, out_dtype=torch.float32)
                for i, case in enumerate(INT8_CASES)]
+    checks += [check_int8(case, B, seed=400 + i * 7 + B, static=static, out_dtype=dtype)
+               for i, case in enumerate(INT8_EXTRA_CASES) for B in INT8_BATCHES
+               for static in (False, True) for dtype in (torch.bfloat16, torch.float32)]
+    log("export int8 large quantize:", json.dumps(check_int8_quantize_large()))
+    log("export int8 quantize with a NaN:", json.dumps(check_int8_quantize_nan()))
     log("export int8 checks:", json.dumps({
         "cases": len(checks), "bit_equal": sum(r["units"] == 0 for r in checks),
         "max_units": max(r["units"] for r in checks),
         "max_abs_err": max(r["max_abs_err"] for r in checks),
+        "variants": dict(collections.Counter(r["variant"] for r in checks)),
+        "quantize_variants": dict(collections.Counter(r["quantize_variant"] for r in checks)),
         "seconds": time.perf_counter() - t0}))
     for r in checks:
         if r["B"] == 64 and r["mode"] == "dynamic":
@@ -3877,10 +3935,12 @@ def main() -> int:
         sass = sass_tensor_core_count(kname)
         log(f"sass {kname}: instructions {json.dumps(sass)}"
             + (" (no cuobjdump)" if sass is None else ""))
-        # first_dblock, mc_gated_matmul (bf16) and vq_assign (TF32) are
-        # designed for the tensor cores; vq_ema adds rows on the CUDA cores
+        # first_dblock, mc_gated_matmul (bf16), vq_assign (TF32) and
+        # int8_conv (s8: IGMMA in its TMA kernels, IMMA in its byte-load
+        # one) are designed for the tensor cores; vq_ema adds rows on the
+        # CUDA cores
         if kname in TENSOR_CORE_KERNELS and sass is not None \
-                and sass["HMMA"] + sass["HGMMA"] + sass["IMMA"] == 0:
+                and sass["HMMA"] + sass["HGMMA"] + sass["IMMA"] + sass["IGMMA"] == 0:
             raise SystemExit(f"{kname}: no tensor-core instruction in its SASS")
 
     full = check_first_dblock((128, 128, 128, 3, 64), seed=0, timed=True)
@@ -3971,6 +4031,9 @@ def main() -> int:
                                     out_dir)
         real_glow_launches, _ = phase("real glow", run_real_glow, name_limit, base, out_dir)
         scores_launches, _ = phase("scores real", run_scores_real, name_limit, base, out_dir)
+        # the kernels' device times first: their short sessions lost events
+        # after the whole-step profiles below
+        kernel_device_times(timers)
         # last, so that no timed run follows a profiler session
         rec = profile_cgan(args.profile or os.path.join(work, "profile"))
         log("cgan profile:", json.dumps({k: rec[k] for k in (
@@ -3978,7 +4041,6 @@ def main() -> int:
             "category_ms")}))
         log("vqvae profile:", json.dumps(profile_vqvae(args.profile
                                                        or os.path.join(work, "profile"))))
-        kernel_device_times(timers)
         # after the kernels' device times: a session of ~53,000 launches left
         # the next short sessions missing events
         log("glow profile:", json.dumps(profile_glow(args.profile
@@ -4122,8 +4184,9 @@ def main() -> int:
                          for r in mc_glow_bwd[1:]]})
     # GAN Conv_1 3x3 at 32 px, the artifacts' batch
     conv = next(r for r in int8_timed if r["case"] == INT8_TIMED[0])
-    int8_keys = ("shape", "case", "ms", "ms_source", "wrapper_ms", "bound_ms", "bound_by",
-                 "plain_ms", "library_ms", "library_bf16_ms", "max_abs_err", "roofline_share")
+    int8_keys = ("shape", "case", "variant", "ms", "ms_source", "wrapper_ms", "bound_ms",
+                 "bound_by", "plain_ms", "library_ms", "library_bf16_ms", "max_abs_err",
+                 "roofline_share")
     int8_paths = {f"export_{k.replace(':', '_')}": v for k, v in export_launches.items()}
     kernels.append({
         "name": "int8_conv", "route": "cuda", "source": "mcgm_tpu_torch/csrc/int8_conv.cu",
@@ -4137,7 +4200,7 @@ def main() -> int:
         "library": "im2col + torch._int_mm (cuBLASLt s8 x s8 -> s32) and the same "
                    "dequantization; library_bf16_ms: cuDNN's bf16 conv of the same shape",
         "library_bf16_ms": conv["library_bf16_ms"], "shape": conv["shape"],
-        "case": conv["case"], "wrapper_ms": conv["wrapper_ms"],
+        "case": conv["case"], "variant": conv["variant"], "wrapper_ms": conv["wrapper_ms"],
         "roofline_share": conv["roofline_share"],
         "checks": {"cases": len(int8_checks),
                    "bit_equal": sum(r["units"] == 0 for r in int8_checks),
@@ -4152,7 +4215,7 @@ def main() -> int:
         "launches": export_launches["mcgan:int8"]["int8_quantize"],
         **{k: qrec[k] for k in ("max_abs_err", "ms", "ms_source", "plain_ms", "bound_ms",
                                 "bound_by",
-                                "library_ms", "shape", "case", "wrapper_ms",
+                                "library_ms", "shape", "case", "variant", "wrapper_ms",
                                 "roofline_share")},
         **({k: qrec[k] for k in ("ms_by_kernel", "span_ms") if k in qrec}),
         "launches_by_path": {k: v["int8_quantize"] for k, v in int8_paths.items()}})

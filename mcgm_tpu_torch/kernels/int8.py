@@ -17,12 +17,14 @@ Ho, Wo, N]``. ``layout`` ``DIRECT``: ``kh x kw`` taps, stride 1, zero
 padding ``pad``; ``UP2``: the 4x4 kernel of a conv over ``x`` dilated by 2
 with padding 2 (the JAX package's ``lhs_dilation=2`` form), ``Ho = 2H``.
 
-On a CUDA tensor each launches its kernel (``csrc/int8_conv.cu``) or raises,
-and its ``launches`` gains one per kernel launched (``int8_quantize``: two
-in dynamic mode, the abs-max and the rounding, one in static mode); on a CPU
-tensor it computes the plain version (:func:`int8_quantize_reference`,
-:func:`int8_conv_reference`: the integer sums exact in int64). Serving needs
-no gradient.
+On a CUDA tensor each launches one kernel (``csrc/int8_conv.cu``) or
+raises, and its ``launches`` gains one; on a CPU tensor it computes the
+plain version (:func:`int8_quantize_reference`, :func:`int8_conv_reference`:
+the integer sums exact in int64). Serving needs no gradient.
+
+Which kernel a call takes, and its tiles and TMA boxes, is a pure function
+of the shapes: :func:`conv_plan` and :func:`quantize_plan`. The ``.cu``
+checks the plan it is given and refuses one it cannot run.
 """
 
 from __future__ import annotations
@@ -40,6 +42,79 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the exact sums of the plain version on the card run in f64: every |sum| of
 # K products of two int8 levels stays below 2^53
 _F64_EXACT_K = 2 ** 53 // 127 ** 2
+
+CONV_VARIANTS = ("bytes", "wide", "narrow")  # the .cu's numbering
+QUANTIZE_VARIANTS = ("static", "rows", "cluster", "stream")
+WIDE_ROWS, NARROW_ROWS = 128, 256  # output pixels per tile (the .cu's kWideRows, kNarrowRows)
+NARROW_N = 8          # channels a phase of the narrow kernel's tile
+NARROW_W_BYTES = 64 * 1024  # the narrow kernel keeps all of w: 8 rows per phase and shift
+TMA_BOX_MAX = 256     # elements per dimension of a TMA box
+STORE_BOX_BYTES = 128  # channel bytes of a wide tile's TMA store box (the .cu's kStoreCols)
+Q_ROWS_MAX_E = 1024   # the rows kernel: one warp per example, 32 values a lane
+Q_CLUSTER = 8         # blocks per example (a portable cluster)
+Q_SLICE_BYTES = 64 * 1024       # the slice of an example a cluster block aims to hold
+Q_MAX_SLICE_BYTES = 192 * 1024  # the most a block holds in shared memory
+
+
+def conv_plan(B: int, H: int, W: int, C: int, N: int, layout: int, kh: int, kw: int,
+              pad: int, aligned: bool = True, out_itemsize: int = 2) -> dict:
+    """The kernel and tiling of an ``int8_conv`` call.
+
+    ``variant``: ``narrow`` (8 channels a phase, all phases at once, w
+    resident) for ``N <= 8``; ``wide`` (m64nBNk32, its output stored by TMA
+    in boxes ``store_box`` of 128 bytes of channels by the x box's pixels)
+    where a row of the output (``out_itemsize`` bytes a value) is a multiple
+    of 16 bytes and, up2, a box stays in its parity's ``N`` channels;
+    ``bytes`` (an ``mma.sync`` kernel staging bytes) for the rest, and where
+    TMA cannot take x's or w's rows (``C`` bytes, not a multiple of 16) or an
+    operand is not 16-byte ``aligned``. The TMA variants also give ``kc``
+    (channel bytes per k chunk: 128, 64 or 32, the swizzle's width; past
+    ``C`` the box reads zeros), ``bn`` (channels per tile), ``box`` (the x
+    box ``(kc, bw, bh, bb)``: channels, columns, rows, examples; ``bw bh
+    bb`` pixels of one phase per tile), ``w_box`` (``(kc, 1, bn)`` over w
+    viewed as ``[N, taps, C]``), the tensors' ``x_strides`` / ``w_strides``
+    in bytes, and ``tiles``."""
+    Hp, Wp = (H, W) if layout == UP2 else _out_hw(layout, H, W, kh, kw, pad)
+    taps = 16 if layout == UP2 else kh * kw
+    if C % 16 or not aligned:
+        return {"variant": "bytes"}
+    kc = 128 if C % 128 == 0 else 64 if C % 64 == 0 else 32
+    chunks = -(-C // kc)
+    shifts, phases = (9, 4) if layout == UP2 else (taps, 1)
+    narrow = N <= NARROW_N and shifts * chunks * NARROW_N * phases * kc <= NARROW_W_BYTES
+    sc = STORE_BOX_BYTES // out_itemsize
+    if not narrow and (N * out_itemsize % 16 or (layout == UP2 and N % sc)):
+        return {"variant": "bytes"}
+    rows = NARROW_ROWS if narrow else WIDE_ROWS
+    bn = NARROW_N if narrow else 256 if N > 128 else 128 if N > 64 else 64
+    bw = min(Wp, rows, TMA_BOX_MAX)
+    bh = min(Hp, rows // bw)
+    bb = min(B, rows // (bw * bh))
+    tiles = -(-Wp // bw) * -(-Hp // bh) * -(-B // bb) * -(-N // bn)
+    return {"variant": "narrow" if narrow else "wide", "kc": kc, "chunks": chunks, "bn": bn,
+            "rows": rows, "box": (kc, bw, bh, bb), "w_box": (kc, 1, bn), "tiles": tiles,
+            "x_strides": (C, W * C, H * W * C), "w_strides": (C, taps * C),
+            "store_box": None if narrow else (sc, bw, bh, bb)}
+
+
+def quantize_plan(B: int, E: int, itemsize: int, static: bool, aligned: bool = True) -> dict:
+    """The kernel of an ``int8_quantize`` call on ``x [B, E]`` of
+    ``itemsize`` bytes: ``static`` (the rounding alone), ``rows`` (one warp
+    per example, ``E <= 1024``), ``cluster`` (a cluster of ``cluster``
+    blocks per example, each holding ``slice`` elements in shared memory:
+    x read once) or ``stream`` (the cluster reading its slices twice: an
+    example too large for the cluster's shared memory, or one whose rows are
+    not 16-byte aligned)."""
+    if static:
+        return {"variant": "static", "cluster": 0, "slice": 0}
+    if E <= Q_ROWS_MAX_E:
+        return {"variant": "rows", "cluster": 0, "slice": 0}
+    if E % 16 == 0 and aligned:
+        cluster = min(Q_CLUSTER, max(1, -(-E * itemsize // Q_SLICE_BYTES)))
+        slice_ = (-(-E // cluster) + 15) // 16 * 16
+        if slice_ * itemsize <= Q_MAX_SLICE_BYTES:
+            return {"variant": "cluster", "cluster": cluster, "slice": slice_}
+    return {"variant": "stream", "cluster": Q_CLUSTER, "slice": -(-E // Q_CLUSTER)}
 
 
 def quantize_sym(t: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
@@ -161,6 +236,31 @@ def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def conv_entry(lib: ctypes.CDLL):
+    """``mcgm_int8_conv`` of a loaded build of the ``.cu``, typed."""
+    fn = lib.mcgm_int8_conv
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
+    return fn
+
+
+def conv_launch_args(x, w, wscale, xscale, bias, layout, kh, kw, pad, out):
+    """``(args, plan)``: the arguments of ``mcgm_int8_conv`` for checked
+    CUDA operands (``bias`` already in ``out``'s dtype) and the plan they
+    carry."""
+    B, H, W, C = x.shape
+    N = w.shape[0]
+    plan = conv_plan(B, H, W, C, N, layout, kh, kw, pad,
+                     aligned=(x.data_ptr() | w.data_ptr() | out.data_ptr()) % 16 == 0,
+                     out_itemsize=out.element_size())
+    _, bw, bh, bb = plan.get("box", (0, 0, 0, 0))
+    args = (x.data_ptr(), w.data_ptr(), wscale.data_ptr(), xscale.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(), _DTYPES[out.dtype],
+            B, H, W, C, N, layout, kh, kw, pad, CONV_VARIANTS.index(plan["variant"]),
+            plan.get("kc", 0), plan.get("bn", 0), bw, bh, bb, _stream(x))
+    return args, plan
+
+
 def int8_conv(x, w, wscale, xscale, bias, layout: int, kh: int, kw: int, pad: int,
               out_dtype: torch.dtype) -> torch.Tensor:
     """See the module doc: the kernel on a CUDA ``x``, the plain version on a
@@ -177,14 +277,10 @@ def int8_conv(x, w, wscale, xscale, bias, layout: int, kh: int, kw: int, pad: in
     if bias is not None:
         bias = bias.to(out_dtype).contiguous()
     lib = build.load(KERNEL)
-    fn = lib.mcgm_int8_conv
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    args, plan = conv_launch_args(x, w, wscale, xscale, bias, layout, kh, kw, pad, out)
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w.data_ptr(), wscale.data_ptr(), xscale.data_ptr(),
-                 None if bias is None else bias.data_ptr(), out.data_ptr(), _DTYPES[out_dtype],
-                 B, H, W, C, N, layout, kh, kw, pad, _stream(x))
-    build.check(lib, err, KERNEL)
+        err = conv_entry(lib)(*args)
+    build.check(lib, err, f"{KERNEL} ({plan['variant']})")
     int8_conv.launches += 1
     return out
 
@@ -207,21 +303,23 @@ def int8_quantize(x: torch.Tensor, amax: torch.Tensor | None = None):
     scale = torch.empty(B, dtype=torch.float32, device=x.device)
     if B == 0 or x.numel() == 0:
         return q, scale.fill_(1e-8 / 127.0)
-    amax_bits = None if amax is not None else torch.empty(B, dtype=torch.int32,
-                                                          device=x.device)
+    E = x.numel() // B
+    plan = quantize_plan(B, E, x.element_size(), amax is not None,
+                         aligned=(x.data_ptr() | q.data_ptr()) % 16 == 0)
     lib = build.load(KERNEL)
     fn = lib.mcgm_int8_quantize
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
-                       + [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                                                  ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     launched = ctypes.c_int(0)
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), _DTYPES[x.dtype], B, x.numel() // B,
+        err = fn(x.data_ptr(), _DTYPES[x.dtype], B, E,
                  None if amax is None else amax.contiguous().data_ptr(), q.data_ptr(),
-                 scale.data_ptr(), None if amax_bits is None else amax_bits.data_ptr(),
-                 ctypes.byref(launched), _stream(x))
+                 scale.data_ptr(), QUANTIZE_VARIANTS.index(plan["variant"]), plan["cluster"],
+                 plan["slice"], ctypes.byref(launched), _stream(x))
     int8_quantize.launches += launched.value
-    build.check(lib, err, "int8_quantize")
+    build.check(lib, err, f"int8_quantize ({plan['variant']})")
     return q, scale
 
 

@@ -133,6 +133,21 @@ def _channel_product(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(w, x.reshape(b, c, h * wd)).reshape(b, -1, h, wd)
 
 
+def _decompose_init(features: int, generator, lu: bool):
+    """The invconvs' initial factors: QR (then LU) of a seeded random matrix,
+    taken on one CPU thread (the thread count is restored after): LAPACK's
+    blocked QR and LU of a 48-wide or wider matrix round otherwise on
+    another thread count, so a seed would not give one set of weights."""
+    a = torch.randn((features, features), generator=generator)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        q, _ = torch.linalg.qr(a)
+        return torch.linalg.lu(q) if lu else q
+    finally:
+        torch.set_num_threads(threads)
+
+
 class InvConv2dLU(nn.Module):
     """``weight = w_p @ (L + I) @ (U + diag(s_sign * exp(w_s)))`` from one
     QR + LU of a random matrix; logdet ``H * W * sum(w_s)``."""
@@ -143,8 +158,7 @@ class InvConv2dLU(nn.Module):
 
     def __init__(self, features: int, generator=None):
         super().__init__()
-        q, _ = torch.linalg.qr(torch.randn((features, features), generator=generator))
-        p, lower, upper = torch.linalg.lu(q)
+        p, lower, upper = _decompose_init(features, generator, lu=True)
         s = torch.diagonal(upper)
         self.register_buffer("w_p", p.contiguous())
         self.register_buffer("s_sign", torch.sign(s))
@@ -175,7 +189,7 @@ class InvConv2d(nn.Module):
 
     def __init__(self, features: int, generator=None):
         super().__init__()
-        q, _ = torch.linalg.qr(torch.randn((features, features), generator=generator))
+        q = _decompose_init(features, generator, lu=False)
         self.weight = nn.Parameter(q.contiguous())
 
     def forward(self, x):
